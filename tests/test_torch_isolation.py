@@ -1,0 +1,99 @@
+"""The port stands alone: importing every tspo_tpu_torch module pulls in
+neither JAX nor the JAX package, and its entry points refuse to run without
+a card unless told ``device="cpu"``."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tspo_tpu_torch.configs import CLIPConfig, PrecomputeConfig, SelectorConfig
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import tspo_tpu_torch
+names = ["tspo_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    tspo_tpu_torch.__path__, "tspo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))
+             or m == "tspo_tpu" or m.startswith("tspo_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_importing_every_module_leaves_jax_and_tspo_tpu_out():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout            # every module was imported
+    assert bad == "[]", f"port imported {bad}"
+
+
+def test_sources_never_name_jax_or_tspo_tpu_imports():
+    for path in (ROOT / "tspo_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert "jax" not in s, f"{path}: {s}"
+                assert not s.startswith(("import tspo_tpu ", "from tspo_tpu ",
+                                         "from tspo_tpu.", "import tspo_tpu.")), \
+                    f"{path}: {s}"
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_scorer_defaults_to_cuda_and_raises_without_card(monkeypatch):
+    from tspo_tpu_torch.models.tspo_model import build_random_scorer
+    _no_card(monkeypatch)
+    tiny = dict(clip_cfg=CLIPConfig.tiny(),
+                selector_cfg=SelectorConfig(dim=48, num_heads=4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_random_scorer(torch.Generator().manual_seed(0), **tiny)
+    s = build_random_scorer(torch.Generator().manual_seed(0), device="cpu", **tiny)
+    assert s.device.type == "cpu"
+
+
+def test_load_scorer_and_cli_raise_without_card(monkeypatch, tmp_path):
+    from tspo_tpu_torch.cli import precompute as precompute_cli
+    from tspo_tpu_torch.cli.common import load_scorer
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError):
+        load_scorer(None, tiny=True)
+    assert load_scorer(None, tiny=True, device="cpu").device.type == "cpu"
+    tsv = tmp_path / "B.tsv"
+    tsv.write_text("index\ttask_name\tvideo_name\tquestion_id\tquestion\n")
+    with pytest.raises(RuntimeError):
+        precompute_cli.main(["--data", "B", "--tsv", str(tsv), "--video-root",
+                             str(tmp_path), "--tiny"])
+
+
+def test_precompute_takes_the_scorers_device(tmp_path):
+    from tspo_tpu_torch.eval.precompute import FrameIndexPrecompute
+    from tspo_tpu_torch.models.tspo_model import build_random_scorer
+    from tspo_tpu_torch.video.cache import FeatureCache
+    s = build_random_scorer(torch.Generator().manual_seed(0), device="cpu",
+                            clip_cfg=CLIPConfig.tiny(),
+                            selector_cfg=SelectorConfig(dim=48, num_heads=4))
+    pre = FrameIndexPrecompute(s, FeatureCache(str(tmp_path)), PrecomputeConfig())
+    assert pre.scorer.device.type == "cpu"
+
+
+def test_kernel_wrapper_raises_for_cuda_without_card():
+    """A CUDA tensor cannot even be made here; the wrapper's device check is
+    what decides, so a non-CPU, non-CUDA device raises rather than falling
+    back."""
+    from tspo_tpu_torch.ops.vit_attention import vit_attention
+    q = torch.zeros(1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        vit_attention(q, q, q, 2)

@@ -1,0 +1,19 @@
+"""tspo_tpu_torch — the PyTorch/CUDA port of tspo_tpu for NVIDIA Hopper.
+
+A second package beside ``tspo_tpu`` (the JAX reference), mirroring its
+layout.  It imports torch and numpy, never JAX and nothing of ``tspo_tpu``.
+Plain tensor code is PyTorch; each Pallas kernel of the JAX package on a
+ported path becomes a hand-written Hopper kernel under ``csrc/``, built with
+nvcc at first use.
+
+Layer map of the phase-1 scoring slice:
+  ops/       selection (top-k / bin-max / AKS), masks, positional encoding,
+             ``vit_attention`` (the Hopper kernel's wrapper + plain version)
+  models/    CLIP-L/14 towers, MultiModalAlign selector, TSPOScorer
+  video/     host-side decode (native C++ ffmpeg + cv2), feature cache
+  eval/      phase-1 frame-index precompute, dataset loaders
+  cli/       ``python -m tspo_tpu_torch.cli.precompute``
+  interop.py weights between the JAX package's trees and this package
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,145 @@
+"""Weights across the two packages' layouts.
+
+The JAX package keeps its parameters as nested dicts ("trees"): transformer
+layers stacked on a leading [L, ...] axis and linear kernels as [in, out].
+This port keeps HF-named ``nn.Module`` parameters: one module per layer and
+linear weights as [out, in].  The functions here convert between the two as
+numpy, with no JAX import, so a JAX tree converted to numpy loads here and
+the port's ``save`` writes the JAX package's ``tspo_params.npz`` layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .configs import CLIPConfig, SelectorConfig
+from .utils.hf_port import stack_layers, t2n
+
+_LN = (("ln1", "layer_norm1"), ("ln2", "layer_norm2"))
+_LIN = (("attn", "q", "self_attn.q_proj"), ("attn", "k", "self_attn.k_proj"),
+        ("attn", "v", "self_attn.v_proj"), ("attn", "o", "self_attn.out_proj"),
+        ("mlp", "fc1", "mlp.fc1"), ("mlp", "fc2", "mlp.fc2"))
+
+# selector tree (group, name) <-> reference MultiModal_Align key
+SELECTOR_KEYS = {
+    "temporal.Self_q": ("temporal", "q"),
+    "temporal.Self_k": ("temporal", "k"),
+    "temporal.Self_v": ("temporal", "v"),
+    "temporal.ffn_o": ("temporal", "ffn_o"),
+    "mlp.0": ("mlp", "fc1"),
+    "mlp.2": ("mlp", "fc2"),
+}
+
+
+def _encoder_to_hf(layers: dict, prefix: str, n: int, sd: dict):
+    for i in range(n):
+        f = f"{prefix}.encoder.layers.{i}"
+        for tree_name, hf_name in _LN:
+            sd[f"{f}.{hf_name}.weight"] = t2n(layers[tree_name]["scale"][i])
+            sd[f"{f}.{hf_name}.bias"] = t2n(layers[tree_name]["bias"][i])
+        for grp, name, hf_name in _LIN:
+            p = layers[grp][name]
+            sd[f"{f}.{hf_name}.weight"] = t2n(p["kernel"][i]).T.copy()
+            sd[f"{f}.{hf_name}.bias"] = t2n(p["bias"][i])
+
+
+def _encoder_from_hf(sd: dict, prefix: str, n: int) -> dict:
+    f = prefix + ".encoder.layers.{i}"
+    out = {"attn": {}, "mlp": {}}
+    for tree_name, hf_name in _LN:
+        out[tree_name] = {"scale": stack_layers(sd, n, f"{f}.{hf_name}.weight"),
+                          "bias": stack_layers(sd, n, f"{f}.{hf_name}.bias")}
+    for grp, name, hf_name in _LIN:
+        out[grp][name] = {
+            "kernel": stack_layers(sd, n, f"{f}.{hf_name}.weight").transpose(0, 2, 1),
+            "bias": stack_layers(sd, n, f"{f}.{hf_name}.bias")}
+    return out
+
+
+def hf_state_dict_from_clip_tree(tree: dict, cfg: CLIPConfig) -> dict:
+    """JAX CLIP tree (numpy leaves) -> HF ``CLIPModel`` state dict (numpy)."""
+    t, v = tree["text"], tree["vision"]
+    sd = {
+        "text_model.embeddings.token_embedding.weight": t2n(t["token_embedding"]),
+        "text_model.embeddings.position_embedding.weight": t2n(t["position_embedding"]),
+        "text_model.final_layer_norm.weight": t2n(t["final_ln"]["scale"]),
+        "text_model.final_layer_norm.bias": t2n(t["final_ln"]["bias"]),
+        "text_projection.weight": t2n(t["projection"]).T.copy(),
+        "vision_model.embeddings.class_embedding": t2n(v["class_embedding"]),
+        "vision_model.embeddings.position_embedding.weight": t2n(v["position_embedding"]),
+        # [3*P*P, W] GEMM kernel -> the HF conv weight [W, 3, P, P]
+        "vision_model.embeddings.patch_embedding.weight": t2n(v["patch_kernel"]).T.reshape(
+            cfg.vision.width, 3, cfg.vision.patch_size, cfg.vision.patch_size).copy(),
+        "vision_model.pre_layrnorm.weight": t2n(v["pre_ln"]["scale"]),
+        "vision_model.pre_layrnorm.bias": t2n(v["pre_ln"]["bias"]),
+        "vision_model.post_layernorm.weight": t2n(v["post_ln"]["scale"]),
+        "vision_model.post_layernorm.bias": t2n(v["post_ln"]["bias"]),
+        "visual_projection.weight": t2n(v["projection"]).T.copy(),
+        "logit_scale": t2n(tree["logit_scale"]),
+    }
+    _encoder_to_hf(t["layers"], "text_model", cfg.text.layers, sd)
+    _encoder_to_hf(v["layers"], "vision_model", cfg.vision.layers, sd)
+    return sd
+
+
+def clip_tree_from_hf_state_dict(sd: dict, cfg: CLIPConfig) -> dict:
+    """HF ``CLIPModel`` state dict -> JAX CLIP tree (numpy leaves): what
+    ``tspo_tpu.models.clip.clip_params_from_torch`` computes."""
+    sd = {k: t2n(v) for k, v in sd.items()}
+    t, v = cfg.text, cfg.vision
+    patch = sd["vision_model.embeddings.patch_embedding.weight"]
+    return {
+        "text": {
+            "token_embedding": sd["text_model.embeddings.token_embedding.weight"],
+            "position_embedding": sd["text_model.embeddings.position_embedding.weight"],
+            "layers": _encoder_from_hf(sd, "text_model", t.layers),
+            "final_ln": {"scale": sd["text_model.final_layer_norm.weight"],
+                         "bias": sd["text_model.final_layer_norm.bias"]},
+            "projection": sd["text_projection.weight"].T,
+        },
+        "vision": {
+            "class_embedding": sd["vision_model.embeddings.class_embedding"],
+            "position_embedding": sd["vision_model.embeddings.position_embedding.weight"],
+            "patch_kernel": patch.reshape(v.width, -1).T,
+            "pre_ln": {"scale": sd["vision_model.pre_layrnorm.weight"],
+                       "bias": sd["vision_model.pre_layrnorm.bias"]},
+            "layers": _encoder_from_hf(sd, "vision_model", v.layers),
+            "post_ln": {"scale": sd["vision_model.post_layernorm.weight"],
+                        "bias": sd["vision_model.post_layernorm.bias"]},
+            "projection": sd["visual_projection.weight"].T,
+        },
+        "logit_scale": sd["logit_scale"],
+    }
+
+
+def selector_state_dict_from_tree(tree: dict) -> dict:
+    """JAX selector tree -> reference ``MultiModal_Align`` state dict (numpy)."""
+    out = {}
+    for key, (grp, name) in SELECTOR_KEYS.items():
+        p = tree[grp][name]
+        out[f"{key}.weight"] = t2n(p["kernel"]).T.copy()
+        out[f"{key}.bias"] = t2n(p["bias"])
+    return out
+
+
+def selector_tree_from_state_dict(sd: dict) -> dict:
+    """Reference ``MultiModal_Align`` state dict -> JAX selector tree (numpy)."""
+    out = {"temporal": {}, "mlp": {}}
+    for key, (grp, name) in SELECTOR_KEYS.items():
+        out[grp][name] = {"kernel": t2n(sd[f"{key}.weight"]).T,
+                          "bias": t2n(sd[f"{key}.bias"])}
+    return out
+
+
+def scorer_from_numpy(clip_tree: dict, selector_tree: dict,
+                      clip_cfg: CLIPConfig, selector_cfg: SelectorConfig,
+                      dtype=torch.float32, device="cuda", **kw):
+    """A port ``TSPOScorer`` holding the weights of a JAX scorer, given its
+    CLIP and selector trees as nested dicts of numpy arrays.  The selector
+    stays fp32 whatever ``dtype``."""
+    from .models.tspo_model import TSPOScorer
+    return TSPOScorer.from_state_dicts(
+        hf_state_dict_from_clip_tree(clip_tree, clip_cfg),
+        selector_state_dict_from_tree(selector_tree),
+        clip_cfg=clip_cfg, selector_cfg=selector_cfg, dtype=dtype,
+        device=device, **kw)

@@ -1,0 +1,166 @@
+"""Unmasked multi-head ViT attention over [B, S, W] — the CLIP/SigLIP towers'
+attention, as a hand-written Hopper kernel (``csrc/vit_attention.cu``).
+
+Counterpart of ``tspo_tpu/ops/vit_attention.py::vit_attention`` (the Pallas
+``_lane_kernel``).  q, k and v stay in their natural GEMM-output layout
+[B, S, W] with W = heads * hd; per head the kernel reads the lane slice
+[:, h*hd:(h+1)*hd], computes softmax(q kᵀ/√hd) in fp32, casts the
+probabilities to the input type and multiplies by v with fp32 accumulation.
+
+Three parts:
+
+- :func:`vit_attention`, the wrapper: a CPU tensor goes to the plain version;
+  a CUDA tensor launches the kernel on the current stream or raises.  It
+  counts its kernel launches in ``vit_attention.launches``.
+- :func:`vit_attention_reference`, the plain PyTorch version with the same
+  numerics.  The CPU tests use it and ``chip_smoke.py`` holds the kernel
+  against it on the card.
+- :func:`build`, which compiles the CUDA source with ``nvcc`` for sm_90a into
+  a shared library with a plain C interface at first use, keyed by a hash of
+  the source, and loads it with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "vit_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tspo_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the vit_attention kernel is built "
+                       "from csrc/vit_attention.cu with the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile ``csrc/vit_attention.cu`` (once per source hash) and return
+    the shared library's path.  Safe to call from several processes: the
+    library is written under a temporary name and renamed into place."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libtspo_vit_attention_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.tspo_vit_attention
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           heads: int) -> int:
+    """Validate what the kernel takes; returns the head dim."""
+    if q.dim() != 3:
+        raise ValueError(f"expected [B, S, W] inputs, got shape {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q/k/v dtypes differ")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q/k/v devices differ")
+    W = q.shape[-1]
+    if heads <= 0 or W % heads:
+        raise ValueError(f"width {W} not divisible by heads {heads}")
+    return W // heads
+
+
+def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            heads: int) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's numerics, one head-batched einsum
+    at a time (fp32 scores and softmax, probabilities cast to the input type,
+    fp32 accumulation of P @ V)."""
+    hd = _check(q, k, v, heads)
+    B, S, W = q.shape
+    qh = q.reshape(B, S, heads, hd).float()
+    kh = k.reshape(B, S, heads, hd).float()
+    vh = v.reshape(B, S, heads, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / np.sqrt(hd))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.float(), vh.float())
+    return out.to(q.dtype).reshape(B, S, W)
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  heads: int) -> torch.Tensor:
+    """Unmasked multi-head attention over [B, S, W] (W = heads * hd).
+
+    CPU tensors take :func:`vit_attention_reference`.  CUDA tensors launch
+    the Hopper kernel on ``torch.cuda.current_stream()``: bf16 or fp32,
+    contiguous, 16-byte aligned, hd a multiple of 8 up to 128, on an sm_90
+    card.  Anything else raises; nothing falls back."""
+    hd = _check(q, k, v, heads)
+    if q.device.type == "cpu":
+        return vit_attention_reference(q, k, v, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"vit_attention kernel takes bf16 or fp32, not {q.dtype}")
+    if hd % 8 or hd > 128:
+        raise ValueError(f"vit_attention kernel takes hd % 8 == 0 and hd <= 128, "
+                         f"got hd={hd}")
+    B, S, W = q.shape
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel grid limit 65535")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    cap = torch.cuda.get_device_capability(q.device)
+    if cap != (9, 0):
+        raise RuntimeError(f"vit_attention kernel is built for sm_90a; "
+                           f"device {q.device} is sm_{cap[0]}{cap[1]}")
+    lib = _load()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tspo_vit_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, W, heads, float(1.0 / np.sqrt(hd)),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"vit_attention kernel launch failed: CUDA error {err}")
+    vit_attention.launches += 1
+    return out
+
+
+vit_attention.launches = 0

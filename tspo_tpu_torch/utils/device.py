@@ -1,0 +1,16 @@
+"""Device choice for the port's entry points: the card unless the caller
+asks for the CPU, and never a silent move to the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
+    """``device`` as a ``torch.device`` (``None`` means ``"cuda"``).  Raises
+    when a CUDA device is asked for and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
