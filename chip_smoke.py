@@ -8,19 +8,39 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 0. Card: the card's name and power limit (nvidia-smi), and the build of every
    Hopper kernel from ``tspo_tpu_torch/csrc`` (one nvcc per source, all
    started together).
-1. Kernel: each kernel's wrapper against its plain PyTorch version, on the
-   card, at the shapes the main path gives it (and the SigLIP geometry), in
-   bf16 and fp32; kernel, plain-version and library-call times by CUDA events
-   after warm-up, beside the least time the card could take (bound).
+1. Kernels: each kernel's wrapper against its plain PyTorch version, on the
+   card, at the shapes the main paths give it, in bf16 and fp32.
+   ``vit_attention`` at the CLIP scoring shape and the SigLIP answer shape;
+   ``flash_attention`` at the answer path's prefill shape (the prompt length
+   of phase 4), ragged B=2, a ``q_offset`` suffix, a sliding ``window``,
+   hd=80 non-causal, fp32, and every other head dim the source instantiates
+   (16, 64) in both types.  Kernel, plain-version and library-call times
+   by CUDA events after warm-up, beside the least time the card could take
+   (bound).
 2. Parity at full width: a CLIP-ViT-L/14 + selector scorer in fp32 with
    random weights from ``--seed`` scores 8 frames of 480x640 on the card and,
    with the same port, on the CPU (plain versions); features, logits and the
-   selected indices must agree.
-3. Main path: the full-width scorer in bf16 with ``batch_frames=256`` scores
-   a 300-frame video (bucket 512) with ``score_video_fused(sample_num=64)``,
-   then encodes it once and scores 3 questions on the shared features.  Every
-   kernel count is set to 0 just before and read just after each path.
-4. One JSON line listing every ported kernel with its launches, error and
+   selected indices must agree.  Then LLaVA-Video at published widths and
+   full vocabulary, cut to 2 SigLIP and 2 Qwen2 layers, fp32 with TF32 off,
+   answers on 3 frames of 480x640 (a prompt of >= 512 tokens, so the flash
+   path runs) on the CPU and on the card: first-step logits within 1e-3
+   relative, and 8 greedy tokens equal wherever the top-2 logit margin
+   exceeds the measured logit error.
+3. Scoring main path: the full-width scorer in bf16 with ``batch_frames=256``
+   scores a 300-frame video (bucket 512) with
+   ``score_video_fused(sample_num=64)``, then encodes it once and scores 3
+   questions on the shared features.
+4. Answer main path: the scorer's 64 frames of that video go to
+   LLaVA-Video-7B-Qwen2 (Qwen2-7B + SigLIP-so400m, full width and depth,
+   bf16, random weights drawn on the card from ``--seed``), which answers
+   with ``generate(max_new_tokens=16)`` and a stub Qwen tokenizer; then the
+   same answer three times through the calls ``generate`` makes, with
+   ``greedy_decode``'s prefill and decode steps timed by CUDA events inside
+   its own loop: stage times, time to first token, decode ms per step, peak
+   memory.
+   Every kernel count is set to 0 just before and read just after each
+   path of phases 3 and 4.
+5. One JSON line listing every ported kernel with its launches, error and
    times; then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
@@ -30,7 +50,9 @@ any check fails.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +64,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and FLOP/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # fp32 outside the tensor cores
+N_SELECT = 64                                   # frames the scorer picks
+QUESTION = "what is the person holding?"
 
 
 def check(cond: bool, msg: str):
@@ -63,6 +87,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(nbytes: float, flops: float, tag: str) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[tag] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def smooth_frames(gen, n: int, h: int = 480, w: int = 640):
     """[n, h, w, 3] uint8 frames: random 12x16 colour fields upsampled by
     nearest neighbour, so frames differ in their content as video frames do."""
@@ -71,13 +103,40 @@ def smooth_frames(gen, n: int, h: int = 480, w: int = 640):
     return low.repeat_interleave(h // 12, 1).repeat_interleave(w // 16, 2).numpy()
 
 
+def answer_prompt_len(n_frames: int) -> int:
+    """Tokens of the answer path's prompt: the qwen_1_5 prompt through the
+    stub tokenizer, with the <image> sentinel replaced by the video tokens."""
+    from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
+    from tspo_tpu_torch.models.conversation import build_prompt
+    from tspo_tpu_torch.models.llava_video import (LLaVAVideoConfig,
+                                                   tokenize_with_image)
+    encode, _ = stub_qwen_tokenizer()
+    ids = tokenize_with_image(build_prompt(QUESTION, "qwen_1_5"), encode)
+    return len(ids) - 1 + n_frames * LLaVAVideoConfig().tokens_per_frame
+
+
+def reset_counts():
+    from tspo_tpu_torch.ops import flash_attention as fa
+    from tspo_tpu_torch.ops import vit_attention as va
+    va.vit_attention.launches = 0
+    fa.flash_attention.launches = 0
+
+
+def read_counts() -> dict:
+    from tspo_tpu_torch.ops import flash_attention as fa
+    from tspo_tpu_torch.ops import vit_attention as va
+    return {"vit_attention": va.vit_attention.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
+    from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
-    builds = {"vit_attention": va.build}
+    builds = {"vit_attention": va.build, "flash_attention": fa.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as ex:
         libs = {name: ex.submit(fn) for name, fn in builds.items()}
@@ -87,7 +146,7 @@ def phase_card():
     return smi
 
 
-def phase_kernel(seed: int) -> dict:
+def phase_kernel_vit(seed: int) -> dict:
     """vit_attention against its plain version; returns the main-path row."""
     import torch
     import torch.nn.functional as F
@@ -95,7 +154,7 @@ def phase_kernel(seed: int) -> dict:
                                                   vit_attention_reference)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     row = None
-    for B, S, W, H in ((256, 257, 1024, 16), (32, 729, 1152, 16)):
+    for B, S, W, H in ((256, 257, 1024, 16), (N_SELECT, 729, 1152, 16)):
         hd = W // H
         for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             q, k, v = (torch.randn(B, S, W, device="cuda", generator=gen).to(dtype)
@@ -117,12 +176,8 @@ def phase_kernel(seed: int) -> dict:
             plain_ms = cuda_time_ms(lambda: vit_attention_reference(q, k, v, H), 5, 1)
             lib_ms = cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(*views), 20)
-            nbytes = 4 * B * S * W * q.element_size()
-            flops = 4 * B * S * S * W
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[tag] * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, bound_by = bound(4 * B * S * W * q.element_size(),
+                                       4 * B * S * S * W, tag)
             print(json.dumps({"phase": 1, "kernel": "vit_attention", "B": B,
                               "S": S, "W": W, "heads": H, "dtype": tag,
                               "max_abs_err": err, "min_row_cos": cos,
@@ -141,7 +196,112 @@ def phase_kernel(seed: int) -> dict:
     return row
 
 
-def phase_parity(seed: int):
+def _live_keys(lengths, Sq: int, causal: bool, window, q_offset: int):
+    """[B, Sq] count of the keys each query row attends (the work these
+    inputs need)."""
+    import torch
+    q_pos = q_offset + torch.arange(Sq)
+    out = []
+    for n in lengths:
+        hi = torch.clamp(q_pos + 1, max=n) if causal else torch.full_like(q_pos, n)
+        lo = torch.clamp(q_pos - window + 1, min=0) if window else torch.zeros_like(q_pos)
+        out.append(torch.clamp(hi - lo, min=0))
+    return torch.stack(out)
+
+
+def phase_kernel_flash(seed: int, s_main: int) -> dict:
+    """flash_attention against its plain version; returns the main-path row."""
+    import torch
+    import torch.nn.functional as F
+    from tspo_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    row = None
+    cases = [
+        # name, B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset, dtype
+        ("main", 1, s_main, s_main, 28, 4, 128, True, None, None, 0, torch.bfloat16),
+        ("ragged", 2, 4096, 4096, 28, 4, 128, True, (4096, 2500), None, 0, torch.bfloat16),
+        ("q_offset", 1, 1024, 4096, 28, 4, 128, True, None, None, 3072, torch.bfloat16),
+        ("window", 2, 4096, 4096, 28, 4, 128, True, (4096, 3000), 1024, 0, torch.bfloat16),
+        ("hd80", 1, 4096, 4096, 16, 16, 80, False, None, None, 0, torch.bfloat16),
+        ("fp32", 1, 2048, 2048, 28, 4, 128, True, None, None, 0, torch.float32),
+        # the other head dims the source instantiates, in both types
+        ("hd80_fp32", 1, 1024, 1024, 16, 16, 80, False, None, None, 0, torch.float32),
+        ("hd64", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, torch.bfloat16),
+        ("hd64_fp32", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, torch.float32),
+        ("hd16", 1, 777, 777, 6, 2, 16, True, None, None, 0, torch.bfloat16),
+        ("hd16_fp32", 1, 777, 777, 6, 2, 16, True, None, None, 0, torch.float32),
+    ]
+    x = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
+    try:
+        flash_attention(x, x, x)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("check failed: flash_attention took hd=32, which "
+                           "the source does not instantiate")
+    for name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, dtype in cases:
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
+        lengths = None if lens is None else torch.tensor(lens, device="cuda")
+        call = (lengths, causal, window, off)
+        out = flash_attention(q, k, v, *call)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, *call)
+        n_keys = _live_keys(lens or (Sk,) * B, Sq, causal, window, off)
+        live = (n_keys > 0).cuda()
+        o, r = out.float()[live], ref.float()[live]
+        err = (o - r).abs().max().item()
+        cos = F.cosine_similarity(o.reshape(-1, hd), r.reshape(-1, hd), dim=-1).min().item()
+        # per-row relative error: sees a scale error on long rows, where
+        # |o| ~ 1/sqrt(keys) falls below the absolute limit and cosine is blind
+        rel = ((o - r).reshape(-1, hd).norm(dim=-1)
+               / r.reshape(-1, hd).norm(dim=-1).clamp_min(1e-30)).max().item()
+        check(torch.isfinite(out).all().item(), f"flash_attention {name} finite")
+        if tag == "bf16":
+            check(cos >= 0.9998 and err <= 2e-2 and rel <= 1e-2,
+                  f"flash_attention {name}: cos {cos} err {err} row rel {rel}")
+        else:
+            check(err <= 5e-5 and rel <= 1e-3,
+                  f"flash_attention {name}: err {err} row rel {rel}")
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, *call), 10)
+        plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, *call), 2, 1)
+        lib_ms = None
+        if lens is None and window is None and off == 0:
+            views = [x.transpose(1, 2) for x in (q, k, v)]
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                *views, is_causal=causal, enable_gqa=True), 10)
+        es = q.element_size()
+        nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * es
+        flops = 4 * hd * H * int(n_keys.sum())
+        bound_ms, bound_by = bound(nbytes, flops, tag)
+        print(json.dumps({"phase": 1, "kernel": "flash_attention", "case": name,
+                          "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                          "causal": causal, "lengths": lens, "window": window,
+                          "q_offset": off, "dtype": tag,
+                          "rows_without_keys": int((~live).sum()),
+                          "max_abs_err": err, "min_row_cos": cos,
+                          "max_row_rel_err": rel,
+                          "kernel_ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by,
+                          "tflops": flops / ms / 1e9}))
+        if name == "main":
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "tspo_tpu_torch/csrc/flash_attention.cu",
+                   "replaces": "tspo_tpu/ops/pallas_attention.py:46",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_parity_scorer(seed: int):
     """Full-width fp32 scorer: card (kernel) against CPU (plain versions)."""
     import numpy as np
     import torch
@@ -163,57 +323,120 @@ def phase_parity(seed: int):
     (fc, ic, lc), (fh, ih, lh) = out["cuda"], out["cpu"]
     cos = torch.nn.functional.cosine_similarity(fc, fh, dim=-1).min().item()
     rel = float(np.abs(lc - lh).max() / np.abs(lh).max())
-    print(json.dumps({"phase": 2, "feature_min_cos": cos, "logits_max_rel": rel,
-                      "indices_card": ic.tolist(), "indices_cpu": ih.tolist()}))
+    print(json.dumps({"phase": 2, "model": "scorer", "feature_min_cos": cos,
+                      "logits_max_rel": rel, "indices_card": ic.tolist(),
+                      "indices_cpu": ih.tolist()}))
     check(cos >= 0.9999, f"parity feature cosine {cos}")
     check(rel <= 1e-3, f"parity logits relative error {rel}")
     check(np.array_equal(ic, ih), f"parity indices {ic} vs {ih}")
     torch.cuda.empty_cache()
 
 
-def phase_main(seed: int) -> int:
-    """The main path at full width in bf16; returns the kernel's launches in
-    the timed score_video_fused run."""
+def phase_parity_llava(seed: int):
+    """LLaVA-Video at published widths, 2 + 2 layers, fp32: the same weights
+    from the seed answer on the CPU (plain versions), then on the card
+    (kernels)."""
+    import torch
+    from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
+    from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
+    from tspo_tpu_torch.models.qwen2 import KVCache, Qwen2Config, greedy_decode
+    from tspo_tpu_torch.models.siglip import SigLIPConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LLaVAVideoConfig(lm=dataclasses.replace(Qwen2Config(), num_layers=2),
+                           vision=dataclasses.replace(SigLIPConfig(), layers=2))
+    encode, decode = stub_qwen_tokenizer()
+    t0 = time.perf_counter()
+    model = LLaVAVideoModel.random_init(torch.Generator().manual_seed(seed + 3),
+                                        cfg, dtype=torch.float32, device="cpu",
+                                        encode=encode, decode=decode)
+    t_init = time.perf_counter() - t0
+    frames = smooth_frames(torch.Generator().manual_seed(seed + 4), 3)
+    n_new = 8
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev)
+        reset_counts()
+        embeds, _, _ = model._prepare_generate(frames, QUESTION, n_new, None)
+        S = embeds.shape[1]
+        cache = KVCache.create(cfg.lm, 1, S + n_new + 8, torch.float32, dev)
+        steps = []
+        toks, n = greedy_decode(model.lm, embeds, torch.ones(1, S, dtype=torch.bool,
+                                                             device=dev),
+                                cache, n_new, step_logits=steps)
+        runs[dev] = (toks.cpu().tolist(), [s[0].cpu() for s in steps], read_counts())
+    (tc, lc, cc), (th, lh, ch) = runs["cuda"], runs["cpu"]
+    check(cc == {"vit_attention": 2, "flash_attention": 2},
+          f"parity run on the card launched {cc}, want 2 and 2")
+    check(ch == {"vit_attention": 0, "flash_attention": 0},
+          f"the CPU run launched kernels: {ch}")
+    rel = ((lc[0] - lh[0]).abs().max() / lh[0].abs().max()).item()
+    margins, errs, equal_upto = [], [], 0
+    for i in range(min(len(lc), len(lh), n_new)):
+        top2 = torch.topk(lh[i], 2).values
+        margins.append((top2[0] - top2[1]).item())
+        errs.append((lc[i] - lh[i]).abs().max().item())
+        if tc[i] != th[i]:
+            check(margins[i] <= 2 * errs[i],
+                  f"greedy token {i} differs ({tc[i]} vs {th[i]}) with margin "
+                  f"{margins[i]} above twice the logit error {errs[i]}")
+            break     # later steps see different inputs
+        equal_upto = i + 1
+    print(json.dumps({"phase": 2, "model": "llava_video_2+2_layers",
+                      "prompt_tokens": S, "init_s": t_init,
+                      "first_logits_max_rel": rel, "tokens_card": tc,
+                      "tokens_cpu": th, "tokens_equal_upto": equal_upto,
+                      "top2_margins_cpu": margins, "logit_max_abs_err": errs,
+                      "launches_card": cc}))
+    check(S >= 512, f"parity prompt of {S} tokens does not reach the flash path")
+    check(rel <= 1e-3, f"LLaVA first-step logits relative error {rel}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_main_scoring(seed: int):
+    """The scoring main path at full width in bf16; returns (launches of the
+    timed score_video_fused run, its indices, the frames)."""
     import numpy as np
     import torch
     from tspo_tpu_torch.cli.common import _stub_tokenizer
     from tspo_tpu_torch.models.tspo_model import build_random_scorer
-    from tspo_tpu_torch.ops.vit_attention import vit_attention
-    T, k = 300, 64
+    T, k = 300, N_SELECT
     scorer = build_random_scorer(torch.Generator().manual_seed(seed),
                                  dtype=torch.bfloat16, device="cuda",
                                  batch_frames=256, tokenize=_stub_tokenizer())
     frames = smooth_frames(torch.Generator().manual_seed(seed + 2), T)
-    questions = ["what is the person holding?", "where does the scene change?",
+    questions = [QUESTION, "where does the scene change?",
                  "how many people appear?"]
     scorer.score_video_fused(frames, questions[0], sample_num=k)   # warm-up
     torch.cuda.synchronize()
 
-    vit_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     idx, logits = scorer.score_video_fused(frames, questions[0], sample_num=k)
     torch.cuda.synchronize()
     t_fused = time.perf_counter() - t0
-    launches = vit_attention.launches
-    check(launches == 46, f"score_video_fused launched vit_attention "
-                          f"{launches} times, want 46 (2 chunks x 23 layers)")
+    launches = read_counts()
+    check(launches == {"vit_attention": 46, "flash_attention": 0},
+          f"score_video_fused launched {launches}, want vit_attention 46 "
+          f"(2 chunks x 23 layers) and flash_attention 0")
     check(logits.shape == (T,) and np.isfinite(logits).all(), "fused logits")
     check(len(idx) == k and np.all(np.diff(idx) > 0) and idx[-1] < T,
           f"fused indices {idx}")
 
-    vit_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     feats = scorer.encode_frame_features(frames)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    shared_launches = vit_attention.launches
+    shared_launches = read_counts()["vit_attention"]
     check(shared_launches == 46, f"encode launched {shared_launches}, want 46")
     t0 = time.perf_counter()
     shared = [scorer.score_features_fused(feats, q, sample_num=k)
               for q in questions]
     torch.cuda.synchronize()
     t_q = time.perf_counter() - t0
-    check(vit_attention.launches == 46, "question scoring launched the kernel")
+    check(read_counts()["vit_attention"] == 46, "question scoring launched the kernel")
     check(feats.shape == (T, 768) and torch.isfinite(feats).all().item(),
           "shared features")
     check(np.array_equal(shared[0][0], idx),
@@ -225,8 +448,87 @@ def phase_main(seed: int) -> int:
                       "frames_per_s": T / t_fused,
                       "shared_encode_s": t_enc, "shared_3q_s": t_q,
                       "shared_frames_per_s": 3 * T / (t_enc + t_q),
-                      "launches_fused": launches,
+                      "launches_fused": launches["vit_attention"],
                       "launches_encode": shared_launches}))
+    del scorer, feats
+    torch.cuda.empty_cache()
+    return launches["vit_attention"], idx, frames
+
+
+def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
+    """The answer main path at full width and depth in bf16; returns the
+    kernels' launches in the timed generate run."""
+    import numpy as np
+    import torch
+    from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
+    from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
+    from tspo_tpu_torch.tools.profile_answer import timed_answer
+    encode, decode = stub_qwen_tokenizer()
+    cfg = LLaVAVideoConfig()
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    model = LLaVAVideoModel.random_init(
+        torch.Generator(device="cuda").manual_seed(seed + 5), cfg,
+        dtype=torch.bfloat16, device="cuda", encode=encode, decode=decode)
+    sync()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.net.parameters())
+    selected = frames[np.asarray(idx)]
+    n_new = 16
+    model.generate(selected, QUESTION, max_new_tokens=n_new)          # warm-up
+    sync()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    answer = model.generate(selected, QUESTION, max_new_tokens=n_new)
+    sync()
+    t_generate = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-len(selected) // model.batch_frames)
+    check(launches == {"vit_attention": 26 * chunks, "flash_attention": 28},
+          f"generate launched {launches}, want vit_attention {26 * chunks} "
+          f"(26 layers x {chunks} chunk) and flash_attention 28 (one per layer)")
+    toks = answer.split()
+    check(1 <= len(toks) <= n_new
+          and all(0 <= int(t) < cfg.lm.vocab_size for t in toks),
+          f"answer {answer!r} is not 1 to {n_new} in-vocabulary tokens")
+
+    # the same answer through the calls generate makes, three times: encode +
+    # splice on the host clock, greedy_decode's prefill and each decode step
+    # by CUDA events recorded inside its own loop
+    runs = [timed_answer(model, selected, QUESTION, n_new) for _ in range(3)]
+    for run_toks, stages, _ in runs:
+        check(stages["prompt_tokens"] == s_expect,
+              f"prompt of {stages['prompt_tokens']} tokens, phase 1 checked {s_expect}")
+        check(" ".join(str(t) for t in run_toks if t != cfg.lm.eos_token_id)
+              == answer, "a timed answer differs from generate's")
+    med = {k: float(np.median([r[1][k] for r in runs]))
+           for k in ("encode_splice_s", "prefill_first_token_s", "decode_s",
+                     "total_s")}
+    steps = [len(r[2]) for r in runs]
+    print(json.dumps({"phase": 4, "frames": len(selected),
+                      "prompt_tokens": s_expect, "new_tokens": n_new,
+                      "params": n_params, "random_init_s": t_init,
+                      "generate_s": t_generate,
+                      "encode_splice_s": med["encode_splice_s"],
+                      "prefill_first_token_s": med["prefill_first_token_s"],
+                      "decode_s": med["decode_s"], "decode_steps": steps[0],
+                      "staged_total_s": med["total_s"],
+                      "time_to_first_token_s":
+                          med["encode_splice_s"] + med["prefill_first_token_s"],
+                      "decode_ms_per_step": med["decode_s"] * 1e3 / steps[0],
+                      "decode_ms_per_step_runs":
+                          [sum(r[2]) / len(r[2]) for r in runs],
+                      "decode_step_ms_max": max(max(r[2]) for r in runs),
+                      "prefill_tokens_per_s": s_expect / med["prefill_first_token_s"],
+                      "max_memory_allocated_gb": peak / 1e9,
+                      "host_cpus": os.cpu_count(),
+                      "host_loadavg_1m": os.getloadavg()[0],
+                      "launches": launches, "answer_head": toks[:4]}))
+    del model, runs
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -234,7 +536,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not (ROOT / "tspo_tpu_torch" / "csrc" / "vit_attention.cu").exists():
+    if not (ROOT / "tspo_tpu_torch" / "csrc" / "flash_attention.cu").exists():
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -244,10 +546,15 @@ def main(argv=None):
         print("no CUDA device is available", file=sys.stderr)
         return 1
     phase_card()
-    row = phase_kernel(args.seed)
-    phase_parity(args.seed)
-    row["launches"] = phase_main(args.seed)
-    print(json.dumps({"kernels": [row]}))
+    s_main = answer_prompt_len(N_SELECT)
+    vit_row = phase_kernel_vit(args.seed)
+    flash_row = phase_kernel_flash(args.seed, s_main)
+    phase_parity_scorer(args.seed)
+    phase_parity_llava(args.seed)
+    vit_row["launches"], idx, frames = phase_main_scoring(args.seed)
+    flash_row["launches"] = phase_main_answer(args.seed, frames, idx,
+                                              s_main)["flash_attention"]
+    print(json.dumps({"kernels": [vit_row, flash_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,6 +49,21 @@ def test_sources_never_name_jax_or_tspo_tpu_imports():
                     f"{path}: {s}"
 
 
+def test_checkpoint_libraries_load_only_inside_loaders():
+    """``transformers`` and ``safetensors`` (optional: running the port on a
+    card needs neither) are imported only inside the functions that read
+    checkpoint directories, never when a port module is imported."""
+    probe = _PROBE.replace(
+        'm == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))\n'
+        '             or m == "tspo_tpu" or m.startswith("tspo_tpu.")',
+        'm.split(".")[0] in ("transformers", "safetensors")')
+    assert probe != _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().split(" ", 1)[1] == "[]", out.stdout
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -78,6 +93,22 @@ def test_load_scorer_and_cli_raise_without_card(monkeypatch, tmp_path):
                              str(tmp_path), "--tiny"])
 
 
+def test_llava_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
+    from tspo_tpu_torch.cli.common import load_backbone
+    from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
+    _no_card(monkeypatch)
+    cfg = LLaVAVideoConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLaVAVideoModel.random_init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLaVAVideoModel.from_torch_checkpoint({}, cfg)
+    m = LLaVAVideoModel.random_init(torch.Generator().manual_seed(0), cfg,
+                                    dtype=torch.float32, device="cpu")
+    assert m.device.type == "cpu"
+    with pytest.raises(ValueError, match="unknown backbone"):
+        load_backbone("qwen2_5_vl", None)
+
+
 def test_precompute_takes_the_scorers_device(tmp_path):
     from tspo_tpu_torch.eval.precompute import FrameIndexPrecompute
     from tspo_tpu_torch.models.tspo_model import build_random_scorer
@@ -93,7 +124,11 @@ def test_kernel_wrapper_raises_for_cuda_without_card():
     """A CUDA tensor cannot even be made here; the wrapper's device check is
     what decides, so a non-CPU, non-CUDA device raises rather than falling
     back."""
+    from tspo_tpu_torch.ops.flash_attention import flash_attention
     from tspo_tpu_torch.ops.vit_attention import vit_attention
     q = torch.zeros(1, 4, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         vit_attention(q, q, q, 2)
+    q4 = torch.zeros(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q4, q4, q4)

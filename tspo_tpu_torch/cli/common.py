@@ -1,24 +1,28 @@
-"""Shared CLI plumbing: scorer loading and tokenizers."""
+"""Shared CLI plumbing: scorer and backbone loading, tokenizers."""
 
 from __future__ import annotations
 
+import glob
+import json
 import os
 
 import numpy as np
 import torch
 
 
-def load_scorer(model_path: str | None, *, tiny: bool = False, device="cuda"):
+def load_scorer(model_path: str | None, *, tiny: bool = False, device="cuda",
+                dtype=None):
     """TSPOScorer from a merged checkpoint directory (the npz format or a
-    reference merged TSPO-0.4B directory), in bf16 with 256-frame chunks, or
-    random weights from seed 0 when ``model_path`` is None (smoke and bench
-    runs).  ``tiny`` selects the small test config, in fp32."""
+    reference merged TSPO-0.4B directory), in ``dtype`` (default bf16) with
+    256-frame chunks, or random weights from seed 0 when ``model_path`` is
+    None (smoke and bench runs).  ``tiny`` selects the small test config, in
+    fp32."""
     from ..configs import CLIPConfig, SelectorConfig
     from ..models.tspo_model import TSPOScorer, build_random_scorer
     from ..utils.device import resolve_device
 
     device = resolve_device(device)
-    dtype, batch_frames = torch.bfloat16, 256
+    dtype, batch_frames = dtype or torch.bfloat16, 256
     gen = torch.Generator().manual_seed(0)
     if model_path:
         tokenize = make_clip_tokenizer(model_path)
@@ -112,3 +116,64 @@ def _stub_tokenizer(eos: int = 49407, length: int = 16, vocab: int | None = None
         ids[0, -1] = eos
         return ids, np.ones((1, length), np.int32)
     return tokenize
+
+
+def stub_qwen_tokenizer(vocab: int = 151643):
+    """(encode, decode) for runs without a tokenizer directory: characters to
+    ids below ``vocab`` (151643, the first of Qwen2's special ids, so no
+    character maps to EOS 151645), and ids back to a space-joined string."""
+    def encode(text: str) -> list:
+        return [ord(c) % vocab for c in text]
+
+    def decode(toks) -> str:
+        return " ".join(str(int(t)) for t in toks)
+    return encode, decode
+
+
+def load_backbone(kind: str, model_path: str | None = None, *, device="cuda",
+                  dtype=None, conv_template: str | None = None):
+    """Backbone for answering: ``"stub"`` (answers "A", for tests) or
+    ``"llava_video"`` from a LLaVA-Video-Qwen2 checkpoint directory
+    (safetensors or pytorch_model*.bin in the llava_qwen layout, config.json,
+    and an HF tokenizer), on ``device`` in ``dtype`` (default bf16)."""
+    if kind == "stub":
+        class Stub:
+            def generate(self, frames, prompt):
+                return "A"
+        return Stub()
+    if kind != "llava_video":
+        raise ValueError(f"unknown backbone: {kind} (the port has 'stub' and "
+                         "'llava_video')")
+    from transformers import AutoTokenizer
+
+    from ..models.llava_video import LLaVAVideoConfig
+    tok = AutoTokenizer.from_pretrained(model_path)
+    cfg_path = os.path.join(model_path, "config.json")
+    cfg = LLaVAVideoConfig()
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            cfg = LLaVAVideoConfig.from_hf_config(json.load(f))
+    model = _load_llava_dir(model_path, cfg, device=device,
+                            dtype=dtype or torch.bfloat16)
+    model.encode = lambda s: tok(s).input_ids
+    model.decode = lambda toks: tok.decode(toks, skip_special_tokens=True)
+    model.conv_template = conv_template or "qwen_1_5"
+    model.bos_token_id = tok.bos_token_id
+    return model
+
+
+def _load_llava_dir(path: str, cfg, *, device, dtype):
+    from ..models.llava_video import LLaVAVideoModel
+    sd = {}
+    st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if st_files:
+        from safetensors import safe_open
+        for fname in st_files:
+            with safe_open(fname, framework="pt") as f:
+                for k in f.keys():
+                    sd[k] = f.get_tensor(k)
+    else:
+        for fname in sorted(glob.glob(os.path.join(path, "pytorch_model*.bin"))):
+            sd.update(torch.load(fname, map_location="cpu", weights_only=True))
+    return LLaVAVideoModel.from_torch_checkpoint(sd, cfg, dtype=dtype,
+                                                 device=device)

@@ -6,6 +6,8 @@ This port keeps HF-named ``nn.Module`` parameters: one module per layer and
 linear weights as [out, in].  The functions here convert between the two as
 numpy, with no JAX import, so a JAX tree converted to numpy loads here and
 the port's ``save`` writes the JAX package's ``tspo_params.npz`` layout.
+The LLaVA-Video backbone crosses as a llava_qwen-layout state dict, the
+format both packages' ``from_torch_checkpoint`` read.
 """
 
 from __future__ import annotations
@@ -143,3 +145,55 @@ def scorer_from_numpy(clip_tree: dict, selector_tree: dict,
         selector_state_dict_from_tree(selector_tree),
         clip_cfg=clip_cfg, selector_cfg=selector_cfg, dtype=dtype,
         device=device, **kw)
+
+
+_QWEN_LIN = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+             ("down", "mlp.down_proj"))
+
+
+def llava_state_dict_from_tree(tree: dict, cfg) -> dict:
+    """JAX ``LLaVAVideoModel.params`` (numpy leaves) -> llava_qwen state dict
+    (numpy), the layout ``LLaVAVideoModel.from_torch_checkpoint`` of either
+    package reads.  ``cfg`` is the port's ``LLaVAVideoConfig``."""
+    lm, vis, proj = tree["lm"], tree["vision"], tree["projector"]
+    sd = {"model.embed_tokens.weight": t2n(lm["embedding"]),
+          "model.norm.weight": t2n(lm["final_ln"]),
+          "model.image_newline": t2n(tree["image_newline"]),
+          "model.mm_projector.0.weight": t2n(proj["fc1"]["kernel"]).T.copy(),
+          "model.mm_projector.0.bias": t2n(proj["fc1"]["bias"]),
+          "model.mm_projector.2.weight": t2n(proj["fc2"]["kernel"]).T.copy(),
+          "model.mm_projector.2.bias": t2n(proj["fc2"]["bias"])}
+    if "lm_head" in lm:
+        sd["lm_head.weight"] = t2n(lm["lm_head"])
+    layers = lm["layers"]
+    for i in range(cfg.lm.num_layers):
+        f = f"model.layers.{i}"
+        sd[f"{f}.input_layernorm.weight"] = t2n(layers["ln1"][i])
+        sd[f"{f}.post_attention_layernorm.weight"] = t2n(layers["ln2"][i])
+        for name, hf_name in _QWEN_LIN:
+            p = layers[name]
+            sd[f"{f}.{hf_name}.weight"] = t2n(p["kernel"][i]).T.copy()
+            if "bias" in p:
+                sd[f"{f}.{hf_name}.bias"] = t2n(p["bias"][i])
+    v = cfg.vision
+    tower = {
+        # [3*P*P, W] GEMM kernel -> the HF conv weight [W, 3, P, P]
+        "vision_model.embeddings.patch_embedding.weight": t2n(vis["patch_kernel"]).T.reshape(
+            v.width, 3, v.patch_size, v.patch_size).copy(),
+        "vision_model.embeddings.patch_embedding.bias": t2n(vis["patch_bias"]),
+        "vision_model.embeddings.position_embedding.weight": t2n(vis["position_embedding"]),
+    }
+    _encoder_to_hf(vis["layers"], "vision_model", v.layers, tower)
+    sd.update({"model.vision_tower.vision_tower." + k: w for k, w in tower.items()})
+    return sd
+
+
+def llava_from_numpy(tree: dict, cfg, dtype=torch.float32, device="cuda", **kw):
+    """A port ``LLaVAVideoModel`` holding the weights of a JAX
+    ``LLaVAVideoModel``, given its params as nested dicts of numpy arrays."""
+    from .models.llava_video import LLaVAVideoModel
+    return LLaVAVideoModel.from_torch_checkpoint(
+        llava_state_dict_from_tree(tree, cfg), cfg, dtype=dtype, device=device,
+        **kw)

@@ -17,72 +17,31 @@ Three parts:
   against it on the card.
 - :func:`build`, which compiles the CUDA source with ``nvcc`` for sm_90a into
   a shared library with a plain C interface at first use, keyed by a hash of
-  the source, and loads it with ctypes.
+  the source (``utils/cuda_build.py``, shared by every kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "vit_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tspo_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from ..utils import cuda_build
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the vit_attention kernel is built "
-                       "from csrc/vit_attention.cu with the CUDA toolkit")
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def build() -> Path:
     """Compile ``csrc/vit_attention.cu`` (once per source hash) and return
-    the shared library's path.  Safe to call from several processes: the
-    library is written under a temporary name and renamed into place."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtspo_vit_attention_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    the shared library's path."""
+    return cuda_build.build("vit_attention")
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.tspo_vit_attention
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return cuda_build.load("vit_attention", "tspo_vit_attention", _ARGTYPES)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -99,3 +99,27 @@ def sample_indices(total: int, container_fps: float, fps: int = 1,
         frame_idx = np.linspace(0, total - 1, max_frames_num, dtype=int).tolist()
         frame_time = [i / container_fps for i in frame_idx]
     return frame_idx, frame_time
+
+
+def load_video(path: str, max_frames_num: int = 256, fps: int = 1,
+               min_frames_num: int = 50, force_sample: bool = False):
+    """1-fps candidate decode with the uniform-resample fallback of
+    :func:`sample_indices`.
+
+    Returns (frames [T, H, W, 3] uint8 RGB, frame_time str, video_time
+    float).  A video that cannot be read gives zeros, as the reference's
+    training path does: (max_frames_num, 336, 336, 3) uint8 and None, None."""
+    try:
+        if max_frames_num == 0:
+            return np.zeros((1, 336, 336, 3), np.uint8), None, None
+        total, container_fps, _, _ = video_info(path)
+        container_fps = container_fps or 30.0
+        video_time = total / container_fps
+        frame_idx, frame_time = sample_indices(total, container_fps, fps,
+                                               max_frames_num, min_frames_num,
+                                               force_sample)
+        frames = load_video_indices(path, frame_idx)
+        time_str = ",".join(f"{t:.2f}s" for t in frame_time)
+        return frames, time_str, video_time
+    except (OSError, ValueError):
+        return np.zeros((max_frames_num, 336, 336, 3), np.uint8), None, None
