@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 
 0. Card: the card's name and power limit (nvidia-smi), and the build of every
-   Hopper kernel from ``tspo_tpu_torch/csrc`` (one nvcc per source, all
+   Hopper kernel from ``tspo_tpu_torch/csrc`` (one nvcc per source, all six
    started together).
 1. Kernels: each kernel's wrapper against its plain PyTorch version, on the
    card, at the shapes the main paths give it, in bf16 and fp32.
@@ -17,6 +17,14 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    (16, 64) in both types.  Kernel, plain-version and library-call times
    by CUDA events after warm-up, beside the least time the card could take
    (bound).
+1b. Variant kernels (``ops/vit_attention_variants.py``, the kernels of the
+   ViT-attention variant bench): every wrapper against its plain version at
+   the bench shape (B=256, S=257, W=1024, 16 heads, bf16) and at B=3, S=40,
+   W=128, 2 heads (ragged S, odd B); ``bdp2`` at W=1024 only (B=3, S=40 as
+   its small case); ``lane_f{2,4}`` also at B=4; the GEMM also at a ragged
+   M.  Attention outputs: min row cosine >= 0.9998, max abs <= 2e-2, per-row
+   relative error <= 1e-2; ``dma`` and the copy probe bit-exact; the GEMM
+   per-row relative error <= 1e-2.  Times as in phase 1.
 2. Parity at full width: a CLIP-ViT-L/14 + selector scorer in fp32 with
    random weights from ``--seed`` scores 8 frames of 480x640 on the card and,
    with the same port, on the CPU (plain versions); features, logits and the
@@ -39,8 +47,14 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    its own loop: stage times, time to first token, decode ms per step, peak
    memory.
    Every kernel count is set to 0 just before and read just after each
-   path of phases 3 and 4.
-5. One JSON line listing every ported kernel with its launches, error and
+   path of phases 3 to 5.
+5. Variant bench main path: ``tools/bench_vit_attention_variants.run`` over
+   every variant at B=256, S=257, W=1024, 16 heads, 24 chained layers: each
+   variant's launches equal its calls (24 a chained call, 3 x 24 for
+   ``fullwidth``, plus one B=8 parity probe; none for ``plain`` and
+   ``sdpa``), and the exact-attention variants agree with ``plain`` (cosine
+   >= 0.9998 at B=8).
+6. One JSON line listing every ported kernel with its launches, error and
    times; then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
@@ -57,6 +71,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -118,8 +133,11 @@ def answer_prompt_len(n_frames: int) -> int:
 def reset_counts():
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
     va.vit_attention.launches = 0
     fa.flash_attention.launches = 0
+    for fn in vv.WRAPPERS:
+        fn.launches = 0
 
 
 def read_counts() -> dict:
@@ -136,7 +154,9 @@ def phase_card():
     print(smi)
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
-    builds = {"vit_attention": va.build, "flash_attention": fa.build}
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
+    builds = {"vit_attention": va.build, "flash_attention": fa.build,
+              **{src: partial(vv.build, src) for src in vv.SOURCES}}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as ex:
         libs = {name: ex.submit(fn) for name, fn in builds.items()}
@@ -299,6 +319,165 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return row
+
+
+BENCH_SCRIPT = "scripts/bench_vit_attention_variants.py"
+# PERF.md kernel rows 3-11: the variant bench's Pallas kernels, the source of
+# their port, the variant that stands for the row in the kernels line, and
+# every bench variant whose launches the row counts
+VARIANT_ROWS = [
+    ("lane", "vit_attention_lane", 43,
+     ("lane", "lane_nt", "lane_par", "lane_nomax", "lane_nosm")),
+    ("lane_f2", "vit_attention_lane", 67,
+     ("lane_f1", "lane_f2", "lane_f4", "lane_f1_nosm", "lane_f2_nosm",
+      "lane_f4_nosm")),
+    ("fullwidth", "inkernel_gemm", 85, ("fullwidth",)),
+    ("dma_only", "dma_probe", 97, ("dma_only", "dma_s256", "dma_f2")),
+    ("gemm_inkernel", "inkernel_gemm", 106, ("gemm_inkernel",)),
+    ("bdp2", "vit_attention_lane", 114, ("bdp2",)),
+    ("manual_dma", "vit_attention_pipelined", 152,
+     ("manual_dma", "manual_dma_copy")),
+    ("lane_packed", "vit_attention_lane", 212, ("lane_packed",)),
+    ("grid_h2", "vit_attention_lane", 228, ("grid_h2",)),
+]
+# variants whose function is exact attention: held to cosine >= 0.9998
+# against ``plain`` in the bench's B=8 parity probe
+EXACT_VARIANTS = ("sdpa", "vit_attention", "lane", "lane_nt", "lane_par",
+                  "lane_f1", "lane_f2", "lane_f4", "grid_h2", "lane_packed",
+                  "bdp2", "manual_dma")
+
+
+def _row_errors(out, ref) -> tuple:
+    """(max abs, min row cosine, max row relative error) over the rows of
+    the last dim."""
+    import torch.nn.functional as F
+    o = out.float().reshape(-1, out.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    err = (o - r).abs().max().item()
+    cos = F.cosine_similarity(o, r, dim=-1).min().item()
+    rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max().item()
+    return err, cos, rel
+
+
+def _variant_cases(q, k, v, H, w):
+    """(variant, kernel, plain version, library call or None, check) at one
+    shape; check is "attention", "exact" or "gemm"."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
+    B, S, W = q.shape
+    views = [x.view(B, S, H, W // H).transpose(1, 2) for x in (q, k, v)]
+    sdpa = partial(F.scaled_dot_product_attention, *views)
+    ref = partial(vv.lane_attention_reference, q, k, v, H)
+    qkv = torch.cat([q, k, v], -1)
+    rows = (S - 1) // 8 * 8
+    x2 = q.reshape(-1, W)
+    one_head = [x[:, None] for x in (q, k, v)]
+    cases = [
+        ("lane", partial(vv.lane_attention, q, k, v, H, transpose_k=True), ref, sdpa, "attention"),
+        ("lane_nt", partial(vv.lane_attention, q, k, v, H), ref, sdpa, "attention"),
+        ("lane_nomax", partial(vv.lane_attention, q, k, v, H, mode="nomax"),
+         partial(ref, mode="nomax"), sdpa, "attention"),
+        ("lane_nosm", partial(vv.lane_attention, q, k, v, H, mode="none"),
+         partial(ref, mode="none"), None, "attention"),
+        ("grid_h2", partial(vv.lane_attention, q, k, v, H, heads_per_block=2), ref, sdpa,
+         "attention"),
+        ("lane_packed", partial(vv.lane_packed_attention, qkv, H),
+         partial(vv.lane_packed_reference, qkv, H), sdpa, "attention"),
+        ("manual_dma", partial(vv.pipelined_attention, q, k, v, H), ref, sdpa, "attention"),
+        ("manual_dma_copy", partial(vv.pipelined_attention, q, k, v, H, copy=True),
+         q.clone, q.clone, "exact"),
+        ("fullwidth", partial(vv.fullwidth_attention, q, k, v, H),
+         partial(vv.fullwidth_reference, q, k, v, H),
+         partial(F.scaled_dot_product_attention, *one_head,
+                 scale=1.0 / math.sqrt(W // H)), "attention"),
+        ("dma_only", partial(vv.dma_add, q, k), partial(vv.dma_add_reference, q, k),
+         lambda: q + k, "exact"),
+        (f"dma_s{rows}", partial(vv.dma_add, q, k, rows),
+         partial(vv.dma_add_reference, q, k, rows),
+         lambda: q[:, :rows] + k[:, :rows], "exact"),
+        ("gemm_inkernel", partial(vv.gemm, x2, w), partial(vv.gemm_reference, x2, w),
+         partial(torch.matmul, x2, w), "gemm"),
+    ]
+    for F_ in (2, 4):
+        if B % F_ == 0:
+            cases.append((f"lane_f{F_}", partial(vv.lane_attention, q, k, v, H, frames=F_),
+                          ref, sdpa, "attention"))
+            cases.append((f"lane_f{F_}_nosm", partial(vv.lane_attention, q, k, v, H,
+                                                      mode="none", frames=F_),
+                          partial(ref, mode="none"), None, "attention"))
+    if W == 1024 and H == 16:
+        cases.append(("bdp2", partial(vv.bdp2_attention, q, k, v, H),
+                      partial(vv.bdp2_reference, q, k, v, H), sdpa, "attention"))
+    return cases
+
+
+def phase_kernel_variants(seed: int) -> dict:
+    """Every variant-bench kernel against its plain version; returns the
+    kernels-line row of each PERF.md row 3-11, keyed by its variant."""
+    import numpy as np
+    import torch
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
+    from tspo_tpu_torch.tools.bench_vit_attention_variants import bound_ms
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    main_shape = (256, 257, 1024, 16)
+    shapes = [main_shape, (3, 40, 128, 2), (3, 40, 1024, 16), (4, 40, 128, 2)]
+    picked = {row[0] for row in VARIANT_ROWS}
+    rows = {}
+    for B, S, W, H in shapes:
+        q, k, v = (torch.randn(B, S, W, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        w = torch.from_numpy(np.random.default_rng(1).normal(size=(W, 3 * W)) * 0.02
+                             ).to("cuda", torch.bfloat16)
+        is_main = (B, S, W, H) == main_shape
+        for name, kern, plain, lib, kind in _variant_cases(q, k, v, H, w):
+            if (B, S, W, H) == (3, 40, 1024, 16) and name != "bdp2":
+                continue            # the W=1024 small case is bdp2's
+            if B == 4 and not name.startswith("lane_f"):
+                continue            # the B=4 case is lane_f{2,4}'s
+            out = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            check(out.shape == ref.shape and out.dtype == torch.bfloat16,
+                  f"{name} B={B} S={S} W={W}: {tuple(out.shape)} {out.dtype}")
+            check(torch.isfinite(out).all().item(), f"{name} B={B} S={S} finite")
+            err, cos, rel = _row_errors(out, ref)
+            if kind == "exact":
+                check(torch.equal(out, ref), f"{name} B={B} S={S} W={W}: not "
+                      f"bit-exact (max abs {err})")
+            elif kind == "gemm":
+                check(rel <= 1e-2, f"{name} B={B} S={S} W={W}: row rel {rel}")
+            else:
+                check(cos >= 0.9998 and err <= 2e-2 and rel <= 1e-2,
+                      f"{name} B={B} S={S} W={W}: cos {cos} err {err} row rel {rel}")
+            n_it = 20 if is_main else 5
+            ms = cuda_time_ms(kern, n_it)
+            plain_ms = cuda_time_ms(plain, 3 if is_main else 2, 1)
+            lib_ms = None if lib is None else cuda_time_ms(lib, n_it)
+            b_ms, b_by = bound_ms(name, B, S, W)
+            print(json.dumps({"phase": "1b", "kernel": name, "B": B, "S": S, "W": W,
+                              "heads": H, "dtype": "bf16", "max_abs_err": err,
+                              "min_row_cos": cos, "max_row_rel_err": rel,
+                              "kernel_ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": b_ms,
+                              "bound_by": b_by}))
+            if is_main and name in picked:
+                src, line = next((r[1], r[2]) for r in VARIANT_ROWS if r[0] == name)
+                rows[name] = {"name": name, "variant": name, "route": "cuda",
+                              "source": f"tspo_tpu_torch/csrc/{src}.cu",
+                              "replaces": f"{BENCH_SCRIPT}:{line}",
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": lib_ms}
+            del out, ref
+        del q, k, v, w
+        torch.cuda.empty_cache()
+    check(set(rows) == picked, f"kernel rows {sorted(rows)}")
+    for fn in vv.WRAPPERS:
+        check(fn.launches > 0, f"{fn.__name__} was never launched in phase 1b")
+    return rows
 
 
 def phase_parity_scorer(seed: int):
@@ -532,6 +711,43 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
     return launches
 
 
+def phase_bench(seed: int, rows: dict):
+    """The variant bench at full shape: launches and parity of every
+    variant; fills each kernel row's launches."""
+    import math
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
+    from tspo_tpu_torch.tools.bench_vit_attention_variants import (
+        default_variants, launches_per_call, run)
+    names = default_variants(257)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = run(names, seed=seed)
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in vv.WRAPPERS}
+    by_name = {r["variant"]: r for r in results}
+    check(list(by_name) == names, f"bench rows {list(by_name)}")
+    for r in results:
+        print(json.dumps({"phase": 5, **r}))
+        want = launches_per_call(r["variant"]) * (r["layers"] * r["calls"] + 1)
+        check(r["launches"] == want, f"bench {r['variant']} launched "
+              f"{r['launches']} kernels, want {want}")
+        check(math.isfinite(r["ms_per_call"]) and r["ms_per_call"] > 0,
+              f"bench {r['variant']} time {r['ms_per_call']}")
+        if r["variant"] in EXACT_VARIANTS:
+            check(r["cos_vs_plain"] >= 0.9998,
+                  f"bench {r['variant']} cos_vs_plain {r['cos_vs_plain']}")
+    for fn_name, n in counts.items():
+        check(n > 0, f"the bench never launched {fn_name}")
+    port_total = sum(r["launches"] for r in results
+                     if r["variant"] != "vit_attention")
+    check(port_total == sum(counts.values()),
+          f"bench rows count {port_total} launches, wrappers {counts}")
+    for variant, _, _, members in VARIANT_ROWS:
+        rows[variant]["launches"] = sum(by_name[m]["launches"] for m in members)
+    print(json.dumps({"phase": 5, "variants": len(results), "wall_s": wall,
+                      "wrapper_launches": counts}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -549,12 +765,15 @@ def main(argv=None):
     s_main = answer_prompt_len(N_SELECT)
     vit_row = phase_kernel_vit(args.seed)
     flash_row = phase_kernel_flash(args.seed, s_main)
+    variant_rows = phase_kernel_variants(args.seed)
     phase_parity_scorer(args.seed)
     phase_parity_llava(args.seed)
     vit_row["launches"], idx, frames = phase_main_scoring(args.seed)
     flash_row["launches"] = phase_main_answer(args.seed, frames, idx,
                                               s_main)["flash_attention"]
-    print(json.dumps({"kernels": [vit_row, flash_row]}))
+    phase_bench(args.seed, variant_rows)
+    print(json.dumps({"kernels": [vit_row, flash_row]
+                      + [variant_rows[r[0]] for r in VARIANT_ROWS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

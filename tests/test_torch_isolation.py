@@ -132,3 +132,28 @@ def test_kernel_wrapper_raises_for_cuda_without_card():
     q4 = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q4, q4, q4)
+    from tspo_tpu_torch.ops import vit_attention_variants as vv
+    m = torch.zeros(2, 4, 128, dtype=torch.bfloat16, device="meta")
+    calls = {
+        "lane_attention": lambda: vv.lane_attention(m, m, m, 2),
+        "lane_packed_attention": lambda: vv.lane_packed_attention(
+            torch.zeros(2, 4, 384, dtype=torch.bfloat16, device="meta"), 2),
+        "bdp2_attention": lambda: vv.bdp2_attention(m, m, m, 2),
+        "pipelined_attention": lambda: vv.pipelined_attention(m, m, m, 2),
+        "dma_add": lambda: vv.dma_add(m, m),
+        "gemm": lambda: vv.gemm(m, m, trans_b=True),
+        "row_softmax": lambda: vv.row_softmax(m.float(), 1.0),
+    }
+    assert set(calls) == {fn.__name__ for fn in vv.WRAPPERS}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+def test_variant_bench_raises_without_card_unless_told_cpu(monkeypatch, capsys):
+    from tspo_tpu_torch.tools import bench_vit_attention_variants as bench
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["lane"])
+    assert bench.main(["lane", "--device", "cpu", "--tiny"]) == 0
+    assert '"variant": "lane"' in capsys.readouterr().out

@@ -52,7 +52,7 @@ def build() -> Path:
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("flash_attention", "tspo_flash_attention", _ARGTYPES)
+    return cuda_build.load("flash_attention", {"tspo_flash_attention": _ARGTYPES})
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:

@@ -41,7 +41,7 @@ def build() -> Path:
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("vit_attention", "tspo_vit_attention", _ARGTYPES)
+    return cuda_build.load("vit_attention", {"tspo_vit_attention": _ARGTYPES})
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -59,15 +59,17 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, symbol: str, argtypes: list) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, with ``symbol``'s argument
-    types set and an int return (the CUDA error code)."""
+def load(name: str, symbols: dict[str, list]) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, with each entry point of
+    ``symbols`` (name -> argument types) given its argument types and an int
+    return (the CUDA error code)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in symbols.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
