@@ -11,12 +11,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 1. Kernels: each kernel's wrapper against its plain PyTorch version, on the
    card, at the shapes the main paths give it, in bf16 and fp32.
    ``vit_attention`` at the CLIP scoring shape and the SigLIP answer shape;
-   ``flash_attention`` at the answer path's prefill shape (the prompt length
-   of phase 4), ragged B=2, a ``q_offset`` suffix, a sliding ``window``,
-   hd=80 non-causal, fp32, and every other head dim the source instantiates
-   (16, 64) in both types.  Kernel, plain-version and library-call times
-   by CUDA events after warm-up, beside the least time the card could take
-   (bound).
+   ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
+   (the prompt length of phase 4), ragged B=2, a ``q_offset`` suffix, a
+   sliding ``window``, the wgmma kernel's tile edges (Sq and Sk off a
+   multiple of 128, lengths mid-tile and on a tile edge, ``q_offset`` off a
+   multiple of 128, a window across tile edges, k/v as a slice of a longer
+   cache, NaN and inf in the cache rows at or past the lengths), hd=80
+   non-causal, fp32, and every other head dim the source instantiates (16,
+   64) in both types; each line names the CUDA kernel the case ran, and the
+   registers, shared memory and blocks per SM of each kernel are printed.
+   Kernel, plain-version and library-call times by CUDA events after
+   warm-up, beside the least time the card could take (bound).
 1b. Variant kernels (``ops/vit_attention_variants.py``, the kernels of the
    ViT-attention variant bench): every wrapper against its plain version at
    the bench shape (B=256, S=257, W=1024, 16 heads, bf16) and at B=3, S=40,
@@ -41,7 +46,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 4. Answer main path: the scorer's 64 frames of that video go to
    LLaVA-Video-7B-Qwen2 (Qwen2-7B + SigLIP-so400m, full width and depth,
    bf16, random weights drawn on the card from ``--seed``), which answers
-   with ``generate(max_new_tokens=16)`` and a stub Qwen tokenizer; then the
+   with ``generate(max_new_tokens=16)`` and a stub Qwen tokenizer (its
+   warm-up answer under ``torch.profiler``: all 28 flash launches run the
+   wgmma kernel); then the
    same answer three times through the calls ``generate`` makes, with
    ``greedy_decode``'s prefill and decode steps timed by CUDA events inside
    its own loop: stage times, time to first token, decode ms per step, peak
@@ -70,6 +77,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
@@ -229,30 +237,75 @@ def _live_keys(lengths, Sq: int, causal: bool, window, q_offset: int):
     return torch.stack(out)
 
 
+# name, B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset, dtype, k/v
+# source: None (their own tensors), "slice" (cache[:, :Sk] of a longer
+# cache) or "poison" (that slice with NaN and inf in every row at or past
+# lengths[b], held against the plain version on the tail zeroed)
+FLASH_CASES = [
+    ("main", 1, None, None, 28, 4, 128, True, None, None, 0, "bf16", None),
+    ("ragged", 2, 4096, 4096, 28, 4, 128, True, (4096, 2500), None, 0, "bf16", None),
+    ("q_offset", 1, 1024, 4096, 28, 4, 128, True, None, None, 3072, "bf16", None),
+    ("window", 2, 4096, 4096, 28, 4, 128, True, (4096, 3000), 1024, 0, "bf16", None),
+    # the wgmma kernel's tile edges (128 query rows, 128 keys a stage)
+    ("rows_129", 1, 129, 129, 28, 4, 128, True, None, None, 0, "bf16", None),
+    ("rows_255", 1, 255, 255, 28, 4, 128, False, None, None, 0, "bf16", None),
+    ("rows_4097", 1, 4097, 4097, 28, 4, 128, True, None, None, 0, "bf16", None),
+    ("lengths_edges", 3, 1024, 1024, 28, 4, 128, True, (1000, 640, 129), None, 0,
+     "bf16", None),
+    ("lengths_full_rows", 2, 300, 1100, 28, 4, 128, False, (1000, 512), None, 0,
+     "bf16", None),
+    ("q_offset_odd", 2, 300, 1000, 28, 4, 128, True, (1000, 900), None, 700, "bf16",
+     None),
+    ("window_edges", 2, 1500, 1500, 28, 4, 128, True, (1500, 1111), 200, 0, "bf16",
+     None),
+    ("cache_slice", 2, 777, 777, 28, 4, 128, True, None, None, 0, "bf16", "slice"),
+    ("poison_causal", 2, 777, 777, 28, 4, 128, True, (700, 333), None, 0, "bf16",
+     "poison"),
+    ("poison_offset_window", 2, 300, 1000, 28, 4, 128, True, (1000, 901), 450, 700,
+     "bf16", "poison"),
+    ("hd80", 1, 4096, 4096, 16, 16, 80, False, None, None, 0, "bf16", None),
+    ("fp32", 1, 2048, 2048, 28, 4, 128, True, None, None, 0, "fp32", None),
+    # the other head dims the source instantiates, in both types
+    ("hd80_fp32", 1, 1024, 1024, 16, 16, 80, False, None, None, 0, "fp32", None),
+    ("hd64", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, "bf16", None),
+    ("hd64_rows_129", 2, 129, 300, 8, 2, 64, False, (300, 200), None, 0, "bf16", None),
+    ("hd64_fp32", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, "fp32", None),
+    ("hd16", 1, 777, 777, 6, 2, 16, True, None, None, 0, "bf16", None),
+    ("hd16_fp32", 1, 777, 777, 6, 2, 16, True, None, None, 0, "fp32", None),
+]
+
+
+def flash_inputs(gen, B, Sq, Sk, H, KV, hd, lens, dtype, source):
+    """(q, k, v, k_ref, v_ref): k/v as the kernel gets them, and as the plain
+    version is held on (the same but for a poisoned tail, zeroed there)."""
+    import torch
+    q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtype)
+    T = Sk if source is None else Sk + 64
+    k, v = (torch.randn(B, T, KV, hd, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    if source == "poison":
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda")
+        for x in (k, v):
+            for b, n in enumerate(lens):
+                x[b, n:] = bad[torch.arange(T - n, device="cuda") % 3, None, None].to(dtype)
+    k, v = k[:, :Sk], v[:, :Sk]
+    if source == "poison":
+        keep = (torch.arange(Sk, device="cuda")[None, :]
+                < torch.tensor(lens, device="cuda")[:, None])[..., None, None]
+        return q, k, v, torch.where(keep, k, 0), torch.where(keep, v, 0)
+    return q, k, v, k, v
+
+
 def phase_kernel_flash(seed: int, s_main: int) -> dict:
     """flash_attention against its plain version; returns the main-path row."""
     import torch
     import torch.nn.functional as F
+    from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_reference)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     row = None
-    cases = [
-        # name, B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset, dtype
-        ("main", 1, s_main, s_main, 28, 4, 128, True, None, None, 0, torch.bfloat16),
-        ("ragged", 2, 4096, 4096, 28, 4, 128, True, (4096, 2500), None, 0, torch.bfloat16),
-        ("q_offset", 1, 1024, 4096, 28, 4, 128, True, None, None, 3072, torch.bfloat16),
-        ("window", 2, 4096, 4096, 28, 4, 128, True, (4096, 3000), 1024, 0, torch.bfloat16),
-        ("hd80", 1, 4096, 4096, 16, 16, 80, False, None, None, 0, torch.bfloat16),
-        ("fp32", 1, 2048, 2048, 28, 4, 128, True, None, None, 0, torch.float32),
-        # the other head dims the source instantiates, in both types
-        ("hd80_fp32", 1, 1024, 1024, 16, 16, 80, False, None, None, 0, torch.float32),
-        ("hd64", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, torch.bfloat16),
-        ("hd64_fp32", 2, 1024, 1024, 8, 2, 64, True, (1024, 700), 300, 0, torch.float32),
-        ("hd16", 1, 777, 777, 6, 2, 16, True, None, None, 0, torch.bfloat16),
-        ("hd16_fp32", 1, 777, 777, 6, 2, 16, True, None, None, 0, torch.float32),
-    ]
     x = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
     try:
         flash_attention(x, x, x)
@@ -261,16 +314,26 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
     else:
         raise RuntimeError("check failed: flash_attention took hd=32, which "
                            "the source does not instantiate")
-    for name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, dtype in cases:
-        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for tag, dtype in dtypes.items():
+        for hd in fa.HEAD_DIMS:
+            print(json.dumps({"phase": 1, "kernel": "flash_attention", "dtype": tag,
+                              "hd": hd, **fa.kernel_attributes(dtype, hd)}))
+    for (name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, tag,
+         source) in FLASH_CASES:
+        Sq, Sk = Sq or s_main, Sk or s_main
+        dtype = dtypes[tag]
+        cuda_kernel = fa.kernel_name(dtype, hd)
+        check(cuda_kernel == "flash_wgmma_kernel"
+              or not (tag == "bf16" and hd in (64, 128)),
+              f"flash_attention {name} routes to {cuda_kernel}")
+        q, k, v, k_ref, v_ref = flash_inputs(gen, B, Sq, Sk, H, KV, hd, lens, dtype,
+                                             source)
         lengths = None if lens is None else torch.tensor(lens, device="cuda")
         call = (lengths, causal, window, off)
         out = flash_attention(q, k, v, *call)
         torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v, *call)
+        ref = flash_attention_reference(q, k_ref, v_ref, *call)
         n_keys = _live_keys(lens or (Sk,) * B, Sq, causal, window, off)
         live = (n_keys > 0).cuda()
         o, r = out.float()[live], ref.float()[live]
@@ -299,9 +362,10 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
         flops = 4 * hd * H * int(n_keys.sum())
         bound_ms, bound_by = bound(nbytes, flops, tag)
         print(json.dumps({"phase": 1, "kernel": "flash_attention", "case": name,
+                          "cuda_kernel": cuda_kernel,
                           "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                           "causal": causal, "lengths": lens, "window": window,
-                          "q_offset": off, "dtype": tag,
+                          "q_offset": off, "dtype": tag, "kv_source": source,
                           "rows_without_keys": int((~live).sum()),
                           "max_abs_err": err, "min_row_cos": cos,
                           "max_row_rel_err": rel,
@@ -316,7 +380,7 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": lib_ms}
-        del q, k, v, out, ref
+        del q, k, v, k_ref, v_ref, out, ref
     torch.cuda.empty_cache()
     return row
 
@@ -640,7 +704,9 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
     import numpy as np
     import torch
     from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
+    from torch.profiler import ProfilerActivity, profile
     from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
+    from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.tools.profile_answer import timed_answer
     encode, decode = stub_qwen_tokenizer()
     cfg = LLaVAVideoConfig()
@@ -654,8 +720,16 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
     n_params = sum(p.numel() for p in model.net.parameters())
     selected = frames[np.asarray(idx)]
     n_new = 16
-    model.generate(selected, QUESTION, max_new_tokens=n_new)          # warm-up
-    sync()
+    # warm-up, under the profiler: which CUDA kernel each flash launch ran
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.generate(selected, QUESTION, max_new_tokens=n_new)
+        sync()
+    ran = Counter(name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  for name in fa.KERNELS if name in e.name)
+    want = fa.kernel_name(torch.bfloat16, cfg.lm.head_dim)
+    check(dict(ran) == {want: 28}, f"an answer's flash launches ran {dict(ran)}, "
+          f"want {want} 28 times (one per layer)")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -705,7 +779,8 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
                       "max_memory_allocated_gb": peak / 1e9,
                       "host_cpus": os.cpu_count(),
                       "host_loadavg_1m": os.getloadavg()[0],
-                      "launches": launches, "answer_head": toks[:4]}))
+                      "launches": launches, "flash_kernels_warmup": dict(ran),
+                      "answer_head": toks[:4]}))
     del model, runs
     torch.cuda.empty_cache()
     return launches

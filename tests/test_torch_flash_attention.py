@@ -6,8 +6,14 @@ The plain version (what a CPU tensor takes) against the JAX Pallas kernel
 to): causal and not, GQA H=6 KV=2, ragged key lengths, ``q_offset`` suffix
 prefill, a sliding ``window``, and bf16 inputs.  Rows with no valid key at
 all (a window past the valid keys) hold tiling-dependent garbage on both
-sides and are only checked to be finite.  The CUDA kernel runs only on the
-card: its test is marked ``cuda`` and skips here."""
+sides and are only checked to be finite.  The stale-tail contract the
+kernel is held to on the card (k/v rows past ``lengths`` never reach the
+output) is checked on the plain version: finite garbage there gives output
+bit-identical to zeros there.  The CUDA kernel runs only on the card: its
+test is marked ``cuda`` and skips here."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -145,47 +151,137 @@ def test_launch_counter_is_a_plain_integer():
     assert isinstance(fa.flash_attention.launches, int)
 
 
+def test_kernel_names_are_the_sources_kernels():
+    """``KERNELS`` (indexed by the source's route) names the CUDA source's
+    kernels, and the answer profile counts each as a flash_attention
+    kernel."""
+    from tspo_tpu_torch.tools.profile_answer import _classify
+    src = (Path(fa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    assert "kRouteWgmma = 0, kRouteMmaSync = 1, kRouteFma = 2" in src
+    for name in fa.KERNELS:
+        assert re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?{name}\(",
+                         src), name
+        assert _classify(f"void (anonymous namespace)::{name}<128>(Params)") == \
+            "flash_attention kernel"
+    with pytest.raises(ValueError, match="hd"):
+        fa.kernel_name(torch.bfloat16, 32)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fa.kernel_attributes(torch.float16, 128)
+
+
+STALE_TAIL_CASES = [
+    # B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset
+    (2, 40, 40, 4, 2, 16, True, (40, 23), None, 0),
+    (2, 24, 70, 6, 2, 16, True, (70, 51), None, 46),
+    (2, 60, 60, 4, 1, 16, True, (60, 37), 9, 0),
+    (3, 20, 90, 7, 1, 16, True, (90, 77, 65), 30, 70),
+    (2, 33, 50, 4, 2, 16, False, (17, 50), None, 0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,lengths,window,q_offset",
+                         STALE_TAIL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stale_cache_tail_does_not_reach_the_output(B, Sq, Sk, H, KV, hd, causal,
+                                                    lengths, window, q_offset, dtype):
+    """The contract the kernel is held to on the card: k/v rows at or past
+    lengths[b] (stale KV-cache slots) do not change the output.  Finite
+    garbage there (+-1e4) gives output bit-identical to zeros there."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in
+               _inputs(B, Sq, Sk, H, KV, hd, seed=Sq + Sk))
+    lens = torch.tensor(lengths)
+    tail = torch.arange(Sk)[None, :, None, None] >= lens[:, None, None, None]
+    rng = np.random.default_rng(B + Sk)
+    garbage = [torch.from_numpy(rng.choice([-1e4, 1e4], size=k.shape)).to(dtype)
+               for _ in range(2)]
+    zeroed = [torch.where(tail, torch.zeros((), dtype=dtype), x) for x in (k, v)]
+    stale = [torch.where(tail, gx, x) for gx, x in zip(garbage, (k, v))]
+    call = dict(valid_len=lens, causal=causal, window=window, q_offset=q_offset)
+    want = fa.flash_attention_reference(q, *zeroed, **call)
+    got = fa.flash_attention_reference(q, *stale, **call)
+    live = torch.from_numpy(_live_rows(lengths, Sq, causal, window, q_offset))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[live], want[live])
+    assert not torch.equal(stale[0], zeroed[0])     # the tail really differs
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     """What ``chip_smoke.py`` phase 1 checks on the card: bf16 row cosine >=
     0.9998, max abs <= 2e-2 and per-row relative error <= 1e-2; fp32 max abs
     <= 5e-5 and per-row relative error <= 1e-3; all outputs finite; one
-    launch per call; every instantiated head dim; hd=32 raises."""
+    launch per call; every instantiated head dim; bf16 at hd 64 and 128 on
+    the wgmma kernel, at its tile edges (128 query rows, 128 keys a stage):
+    Sq and Sk off a multiple of 128, lengths mid-tile and on a tile edge,
+    q_offset off a multiple of 128, a window across tile edges, H/KV = 7,
+    k/v as a slice of a longer cache, and NaN/inf in the cache rows at or
+    past lengths[b] (held against the plain version on zeros there); hd=32
+    raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an sm_90 CUDA card; run python3 chip_smoke.py on it")
+    assert fa.kernel_name(torch.bfloat16, 128) == "flash_wgmma_kernel"
+    assert fa.kernel_name(torch.bfloat16, 64) == "flash_wgmma_kernel"
+    assert fa.kernel_name(torch.bfloat16, 80) == "flash_bf16_kernel"
+    assert fa.kernel_name(torch.float32, 128) == "flash_f32_kernel"
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, S, H, KV, hd, causal, lens, window, off in (
-            (1, 1000, 28, 4, 128, True, None, None, 0),
-            (2, 700, 28, 4, 128, True, (700, 333), None, 0),
-            (1, 300, 16, 16, 80, False, None, None, 0),
-            (2, 260, 8, 2, 64, True, (260, 200), 100, 0),
-            (1, 333, 6, 2, 16, True, None, None, 0)):
+    bf16_only = [
+        # B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset, k/v source
+        (1, 129, 129, 28, 4, 128, True, None, None, 0, None),
+        (1, 255, 4097, 28, 4, 128, False, None, None, 0, None),
+        (3, 1024, 1024, 28, 4, 128, True, (1000, 640, 129), None, 0, None),
+        (2, 300, 1000, 28, 4, 128, True, (1000, 900), None, 700, None),
+        (2, 1500, 1500, 28, 4, 128, True, (1500, 1111), 200, 0, None),
+        (2, 777, 777, 28, 4, 128, True, None, None, 0, "slice"),
+        (2, 777, 777, 28, 4, 128, True, (700, 333), None, 0, "poison"),
+        (2, 300, 1000, 28, 4, 128, True, (1000, 901), 450, 700, "poison"),
+    ]
+    both = [
+        (1, 1000, 1000, 28, 4, 128, True, None, None, 0, None),
+        (2, 700, 700, 28, 4, 128, True, (700, 333), None, 0, None),
+        (1, 300, 300, 16, 16, 80, False, None, None, 0, None),
+        (2, 260, 260, 8, 2, 64, True, (260, 200), 100, 0, None),
+        (1, 333, 333, 6, 2, 16, True, None, None, 0, None),
+    ]
+    cases = ([(c, torch.bfloat16) for c in bf16_only]
+             + [(c, dt) for c in both for dt in (torch.bfloat16, torch.float32)])
+    for (B, Sq, Sk, H, KV, hd, causal, lens, window, off, source), dtype in cases:
         lengths = None if lens is None else torch.tensor(lens, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
-            k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
-            v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
-            before = fa.flash_attention.launches
-            out = fa.flash_attention(q, k, v, lengths, causal, window, off)
-            torch.cuda.synchronize()
-            assert fa.flash_attention.launches == before + 1
-            ref = fa.flash_attention_reference(q, k, v, lengths, causal, window, off)
-            live = torch.from_numpy(_live_rows(
-                np.full(B, S) if lens is None else np.asarray(lens), S, causal,
-                window, off)).cuda()
-            assert torch.isfinite(out).all()
-            o, r = out.float()[live], ref.float()[live]
-            rel = ((o - r).reshape(-1, hd).norm(dim=-1)
-                   / r.reshape(-1, hd).norm(dim=-1)).max().item()
-            if dtype == torch.float32:
-                assert (o - r).abs().max().item() <= 5e-5
-                assert rel <= 1e-3
-            else:
-                cos = torch.nn.functional.cosine_similarity(
-                    o.reshape(-1, hd), r.reshape(-1, hd), dim=-1)
-                assert cos.min().item() >= 0.9998
-                assert (o - r).abs().max().item() <= 2e-2
-                assert rel <= 1e-2
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtype)
+        T = Sk if source is None else Sk + 64
+        k, v = (torch.randn(B, T, KV, hd, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        if source == "poison":
+            for x in (k, v):
+                for b, n in enumerate(lens):
+                    x[b, n::2] = float("nan")
+                    x[b, n + 1::2] = float("inf")
+        k, v = k[:, :Sk], v[:, :Sk]
+        k_ref, v_ref = k, v
+        if source == "poison":
+            keep = (torch.arange(Sk, device="cuda")[None, :]
+                    < lengths[:, None])[..., None, None]
+            k_ref, v_ref = torch.where(keep, k, 0), torch.where(keep, v, 0)
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, lengths, causal, window, off)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        ref = fa.flash_attention_reference(q, k_ref, v_ref, lengths, causal, window, off)
+        live = torch.from_numpy(_live_rows(
+            np.full(B, Sk) if lens is None else np.asarray(lens), Sq, causal,
+            window, off)).cuda()
+        assert torch.isfinite(out).all()
+        o, r = out.float()[live], ref.float()[live]
+        rel = ((o - r).reshape(-1, hd).norm(dim=-1)
+               / r.reshape(-1, hd).norm(dim=-1)).max().item()
+        if dtype == torch.float32:
+            assert (o - r).abs().max().item() <= 5e-5
+            assert rel <= 1e-3
+        else:
+            cos = torch.nn.functional.cosine_similarity(
+                o.reshape(-1, hd), r.reshape(-1, hd), dim=-1)
+            assert cos.min().item() >= 0.9998
+            assert (o - r).abs().max().item() <= 2e-2
+            assert rel <= 1e-2
     x = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="hd"):
         fa.flash_attention(x, x, x)

@@ -157,3 +157,13 @@ def test_variant_bench_raises_without_card_unless_told_cpu(monkeypatch, capsys):
         bench.main(["lane"])
     assert bench.main(["lane", "--device", "cpu", "--tiny"]) == 0
     assert '"variant": "lane"' in capsys.readouterr().out
+
+
+def test_flash_form_comparison_needs_a_card(monkeypatch, tmp_path):
+    from tspo_tpu_torch.tools import compare_flash_forms as cmp
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        cmp.main([str(tmp_path / "old.cu")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="distinct file name"):
+        cmp.compare([tmp_path / "a" / "f.cu", tmp_path / "b" / "f.cu"])

@@ -8,11 +8,13 @@ repeated.  Key validity is a contiguous prefix per batch row, given as
 lengths; ``causal`` places the query rows at key positions
 [q_offset, q_offset + Sq); ``window`` keeps q_pos - k_pos < window.
 
-Three parts:
+Its parts:
 
 - :func:`flash_attention`, the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel on the current stream or raises.
-  It counts its kernel launches in ``flash_attention.launches``.
+  It counts its kernel launches in ``flash_attention.launches``; the raw
+  launch is :func:`launch`, which ``tools/compare_flash_forms.py`` also
+  uses on other builds of the source.
 - :func:`flash_attention_reference`, the plain PyTorch version with the
   kernel's numerics (``pallas_attention.py:79,96-97,103-104``): q.kᵀ
   accumulated in fp32, then scaled by 1/√hd; masked scores are -1e30, never
@@ -21,7 +23,10 @@ Three parts:
   query rows in chunks, so the card can hold the kernel against it at the
   prefill length without [H, S, S] scores.
 - :func:`build`, which compiles the CUDA source at first use
-  (``utils/cuda_build.py``).
+  (``utils/cuda_build.py``); :func:`kernel_name` and
+  :func:`kernel_attributes` say which CUDA kernel the source routes a
+  (dtype, hd) to (the ``wgmma`` kernel for bf16 at hd 64 and 128) and its
+  registers, shared memory and resident blocks per SM.
 
 A query row with no valid key (only possible with a window, or a zero
 length) gets a finite garbage row whose value depends on the tiling; callers
@@ -43,6 +48,8 @@ _NEG = -1e30
 HEAD_DIMS = (16, 64, 80, 128)   # the head dims the CUDA source instantiates
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 8
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the CUDA kernels of the source, by the index tspo_flash_attention_route gives
+KERNELS = ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")
 
 
 def build() -> Path:
@@ -52,7 +59,38 @@ def build() -> Path:
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("flash_attention", {"tspo_flash_attention": _ARGTYPES})
+    return cuda_build.load("flash_attention", {
+        "tspo_flash_attention": _ARGTYPES,
+        "tspo_flash_attention_route": [ctypes.c_int, ctypes.c_int],
+        "tspo_flash_attention_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+
+
+def _route_args(dtype: torch.dtype, hd: int) -> tuple:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention kernel takes bf16 or fp32, not {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, got hd={hd}")
+    return hd, int(dtype == torch.bfloat16)
+
+
+def kernel_name(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel a launch at (dtype, hd) runs, as the source routes it
+    (builds the library)."""
+    args = _route_args(dtype, hd)
+    return KERNELS[_load().tspo_flash_attention_route(*args)]
+
+
+def kernel_attributes(dtype: torch.dtype, hd: int) -> dict:
+    """Registers a thread at launch, shared memory a block (bytes), resident
+    blocks an SM and threads a block of the kernel (dtype, hd) routes to, from
+    ``cudaFuncGetAttributes`` and the occupancy API on the current card."""
+    args = _route_args(dtype, hd)
+    out = (ctypes.c_int * 4)()
+    err = _load().tspo_flash_attention_attributes(*args, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention attributes failed: CUDA error {err}")
+    return {"kernel": kernel_name(dtype, hd), "registers": out[0],
+            "shared_bytes": out[1], "blocks_per_sm": out[2], "threads": out[3]}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
@@ -117,6 +155,26 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, lengths, causal: bool, window, q_offset: int) -> int:
+    """One launch of ``lib``'s ``tspo_flash_attention`` on the current stream
+    into ``out``, with no checks and no count (the wrapper's checks come
+    first); returns the CUDA error code.  ``tools/compare_flash_forms.py``
+    launches other builds of the source through it."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        return lib.tspo_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lengths is None else lengths.data_ptr(),
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            B, Sq, Sk, H, KV, hd, int(causal), int(window or 0),
+            int(q_offset), float(1.0 / math.sqrt(hd)),
+            int(q.dtype == torch.bfloat16), stream)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_k=None, causal: bool = False,
                     window: int | None = None,
@@ -136,11 +194,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash_attention kernel takes bf16 or fp32, not {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got hd={hd}")
+    _route_args(q.dtype, hd)
     if B > 65535 or H > 65535:
         raise ValueError(f"B={B} or H={H} exceeds the kernel grid limit 65535")
     if window is not None and window <= 0:
@@ -156,18 +210,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel is built for sm_90a; "
                            f"device {q.device} is sm_{cap[0]}{cap[1]}")
     lengths = None if valid_k is None else _lengths(valid_k, B, Sk, q.device)
-    lib = _load()
     out = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tspo_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lengths is None else lengths.data_ptr(),
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            B, Sq, Sk, H, KV, hd, int(causal), int(window or 0),
-            int(q_offset), float(1.0 / math.sqrt(hd)),
-            int(q.dtype == torch.bfloat16), stream)
+    err = launch(_load(), q, k, v, out, lengths, causal, window, q_offset)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -98,7 +98,7 @@ def timed_answer(model, frames, question: str, max_new_tokens: int):
 
 def _classify(name: str) -> str:
     n = name.lower()
-    if re.search(r"flash_(bf16|f32)_kernel", n):
+    if re.search(r"flash_(wgmma|bf16|f32)_kernel", n):
         return "flash_attention kernel"
     if "vit_attention" in n:
         return "vit_attention kernel"

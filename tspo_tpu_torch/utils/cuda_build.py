@@ -38,11 +38,12 @@ def _nvcc() -> str:
                        "tspo_tpu_torch/csrc with the CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and return the
-    shared library's path.  Safe to call from several threads or processes:
-    the library is written under a temporary name and renamed into place."""
-    src_path = CSRC / f"{name}.cu"
+def build(name: str, src_path: Path | None = None) -> Path:
+    """Compile ``csrc/<name>.cu``, or ``src_path`` under that name (once per
+    source hash), and return the shared library's path.  Safe to call from
+    several threads or processes: the library is written under a temporary
+    name and renamed into place."""
+    src_path = src_path or CSRC / f"{name}.cu"
     src = src_path.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libtspo_{name}_{tag}.so"
