@@ -10,8 +10,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    started together).
 1. Kernels: each kernel's wrapper against its plain PyTorch version, on the
    card, at the shapes the main paths give it, in bf16 and fp32.
-   ``vit_attention`` at the CLIP scoring shape and the SigLIP answer shape;
-   ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
+   ``vit_attention`` (``VIT_MAIN``, ``VIT_EDGE_S``) at the CLIP scoring
+   shape and the SigLIP answer shape, the wgmma kernel's tile edges (bf16 at
+   hd 64 and 72, S from 1 to 730, B of 1, 3, 44 and the main path's), a NaN
+   frame beside a clean one, inf in the next head's columns, and the other
+   head dims the source takes (16, 32, 80, 128) in both types; each case
+   names the CUDA kernel it ran and the wgmma kernel's form, and the
+   registers, shared memory and blocks per SM of each kernel are printed;
+   at the CLIP shape ``flash_attention``'s kernel on the same tensors is
+   timed as a reference point.  ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
    (the prompt length of phase 4), ragged B=2, a ``q_offset`` suffix, a
    sliding ``window``, the wgmma kernel's tile edges (Sq and Sk off a
    multiple of 128, lengths mid-tile and on a tile edge, ``q_offset`` off a
@@ -41,14 +48,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    exceeds the measured logit error.
 3. Scoring main path: the full-width scorer in bf16 with ``batch_frames=256``
    scores a 300-frame video (bucket 512) with
-   ``score_video_fused(sample_num=64)``, then encodes it once and scores 3
+   ``score_video_fused(sample_num=64)`` (its warm-up call under
+   ``torch.profiler``: all 46 ``vit_attention`` launches run
+   ``vit_attention_wgmma_kernel``), then encodes it once and scores 3
    questions on the shared features.
 4. Answer main path: the scorer's 64 frames of that video go to
    LLaVA-Video-7B-Qwen2 (Qwen2-7B + SigLIP-so400m, full width and depth,
    bf16, random weights drawn on the card from ``--seed``), which answers
    with ``generate(max_new_tokens=16)`` and a stub Qwen tokenizer (its
    warm-up answer under ``torch.profiler``: all 28 flash launches run the
-   wgmma kernel); then the
+   wgmma kernel, all 26 ``vit_attention`` launches
+   ``vit_attention_wgmma_kernel``); then the
    same answer three times through the calls ``generate`` makes, with
    ``greedy_decode``'s prefill and decode steps timed by CUDA events inside
    its own loop: stage times, time to first token, decode ms per step, peak
@@ -62,7 +72,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    ``sdpa``), and the exact-attention variants agree with ``plain`` (cosine
    >= 0.9998 at B=8).
 6. One JSON line listing every ported kernel with its launches, error and
-   times; then, as the last line, ``{"ok": true, "device": {...}}``.
+   times (``vit_attention``'s row at the CLIP shape, with both main-path
+   shapes and each one's launches under ``shapes``); then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
 any check fails.  Imports nothing of JAX or of the JAX package.
@@ -138,6 +150,15 @@ def answer_prompt_len(n_frames: int) -> int:
     return len(ids) - 1 + n_frames * LLaVAVideoConfig().tokens_per_frame
 
 
+def cuda_kernels_run(prof, kernels) -> dict:
+    """{kernel: launches} of the CUDA kernels in ``kernels`` that a
+    torch.profiler trace saw run on the card."""
+    import torch
+    return dict(Counter(name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        for name in kernels if name in e.name))
+
+
 def reset_counts():
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
@@ -174,54 +195,140 @@ def phase_card():
     return smi
 
 
-def phase_kernel_vit(seed: int) -> dict:
-    """vit_attention against its plain version; returns the main-path row."""
+# the scoring path's CLIP shape and the answer path's SigLIP shape of
+# vit_attention: name -> (B, S, W, heads)
+VIT_MAIN = {"clip": (256, 257, 1024, 16), "siglip": (N_SELECT, 729, 1152, 16)}
+# the wgmma kernel's tile edges: 64-row query tiles, the 256-key box and its
+# tail (resident form, hd 64 up to S=264), 128-row and 128-key tiles
+# (streamed form)
+VIT_EDGE_S = (1, 8, 63, 64, 65, 127, 128, 129, 255, 256, 257, 729, 730)
+
+
+def _vit_case(gen, B, S, H, hd, dtype, tag, poison=None):
+    """One vit_attention case against the plain version; returns (out, ref,
+    max abs, min row cosine) over the rows and heads the plain version is
+    held on.  poison "frame": frame 1 is NaN, frame 0 is checked; "head":
+    head 1's columns are inf, every other head is checked."""
     import torch
     import torch.nn.functional as F
-    from tspo_tpu_torch.ops.vit_attention import (vit_attention,
-                                                  vit_attention_reference)
+    from tspo_tpu_torch.ops.vit_attention import vit_attention, vit_attention_reference
+    W = H * hd
+    q, k, v = (torch.randn(B, S, W, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    keep = torch.arange(W, device="cuda")
+    frames = slice(None)
+    if poison == "frame":
+        for x in (q, k, v):
+            x[1] = float("nan")
+        frames = slice(0, 1)
+    elif poison == "head":
+        for x in (q, k, v):
+            x[..., hd:2 * hd] = float("inf")
+        keep = torch.cat([keep[:hd], keep[2 * hd:]])
+    out = vit_attention(q, k, v, H)
+    torch.cuda.synchronize()
+    heads = H - (poison == "head")
+    ref = vit_attention_reference(*(x[frames][..., keep] for x in (q, k, v)), heads)
+    got = out[frames][..., keep]
+    check(torch.isfinite(got).all().item(),
+          f"vit_attention {tag} B={B} S={S} hd={hd} poison={poison}: not finite")
+    o = got.float().reshape(-1, hd)
+    r = ref.float().reshape(-1, hd)
+    err = (o - r).abs().max().item()
+    cos = F.cosine_similarity(o, r, dim=-1).min().item()
+    if tag == "bf16":
+        check(cos >= 0.9998 and err <= 2e-2,
+              f"vit_attention bf16 B={B} S={S} hd={hd} poison={poison}: cos {cos} err {err}")
+    else:
+        check(err <= 2e-5, f"vit_attention fp32 B={B} S={S} hd={hd}: err {err}")
+    return q, k, v, err, cos
+
+
+def phase_kernel_vit(seed: int) -> dict:
+    """vit_attention against its plain version at the wgmma kernel's tile
+    edges, both poison cases and every other head dim; times at both
+    main-path shapes; returns the kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from tspo_tpu_torch.ops import flash_attention as fa
+    from tspo_tpu_torch.ops import vit_attention as va
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    row = None
-    for B, S, W, H in ((256, 257, 1024, 16), (N_SELECT, 729, 1152, 16)):
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for tag, hd, S in (("bf16", 64, 257), ("bf16", 64, 729), ("bf16", 72, 729),
+                       *((t, d, 257) for t in dtypes for d in (16, 32, 80, 128)),
+                       ("fp32", 64, 257), ("fp32", 72, 729)):
+        print(json.dumps({"phase": 1, "kernel": "vit_attention", "dtype": tag, "hd": hd,
+                          "S": S, **va.kernel_attributes(dtypes[tag], hd, S)}))
+    # tile edges, bf16 at hd 64 and 72, H=16 (W as the main paths' towers)
+    n_cases = 0
+    for hd in (64, 72):
+        for S in VIT_EDGE_S:
+            form = va.kernel_attributes(torch.bfloat16, hd, S)["form"]
+            for B in (1, 3, 44, 256 if hd == 64 else N_SELECT):
+                _, _, _, err, cos = _vit_case(gen, B, S, 16, hd, torch.bfloat16, "bf16")
+                n_cases += 1
+                print(json.dumps({"phase": 1, "kernel": "vit_attention", "case": "edge",
+                                  "cuda_kernel": va.kernel_name(torch.bfloat16, hd),
+                                  "form": form, "B": B, "S": S, "hd": hd, "dtype": "bf16",
+                                  "max_abs_err": err, "min_row_cos": cos}))
+    # poison: a NaN frame beside a clean one; inf in the next head's columns
+    for poison, B, S, hd in (("frame", 2, 257, 64), ("frame", 2, 729, 72),
+                             ("head", 3, 257, 64), ("head", 3, 729, 72)):
+        _, _, _, err, cos = _vit_case(gen, B, S, 16, hd, torch.bfloat16, "bf16", poison)
+        print(json.dumps({"phase": 1, "kernel": "vit_attention", "case": f"poison_{poison}",
+                          "cuda_kernel": va.kernel_name(torch.bfloat16, hd), "B": B, "S": S,
+                          "hd": hd, "dtype": "bf16", "max_abs_err": err, "min_row_cos": cos}))
+    # the other head dims the source takes, both types
+    for tag, dtype in dtypes.items():
+        for hd in (16, 32, 80, 128):
+            _, _, _, err, cos = _vit_case(gen, 3, 257, 4, hd, dtype, tag)
+            print(json.dumps({"phase": 1, "kernel": "vit_attention", "case": "head_dim",
+                              "cuda_kernel": va.kernel_name(dtype, hd), "B": 3, "S": 257,
+                              "hd": hd, "dtype": tag, "max_abs_err": err, "min_row_cos": cos}))
+    print(json.dumps({"phase": 1, "kernel": "vit_attention", "edge_cases": n_cases}))
+    # the main-path shapes, both types: errors and times
+    shapes = {}
+    for name, (B, S, W, H) in VIT_MAIN.items():
         hd = W // H
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-            q, k, v = (torch.randn(B, S, W, device="cuda", generator=gen).to(dtype)
-                       for _ in range(3))
-            out = vit_attention(q, k, v, H)
-            torch.cuda.synchronize()
-            ref = vit_attention_reference(q, k, v, H)
-            err = (out.float() - ref.float()).abs().max().item()
-            cos = F.cosine_similarity(out.float().reshape(-1, W),
-                                      ref.float().reshape(-1, W), dim=-1).min().item()
-            check(torch.isfinite(out).all().item(), f"vit_attention {tag} finite")
-            if tag == "bf16":
-                check(cos >= 0.9998 and err <= 2e-2,
-                      f"vit_attention bf16 B={B} S={S}: cos {cos} err {err}")
-            else:
-                check(err <= 2e-5, f"vit_attention fp32 B={B} S={S}: err {err}")
+        for tag, dtype in dtypes.items():
+            q, k, v, err, cos = _vit_case(gen, B, S, H, hd, dtype, tag)
+            cuda_kernel = va.kernel_name(dtype, hd)
+            check(tag == "fp32" or cuda_kernel == "vit_attention_wgmma_kernel",
+                  f"vit_attention bf16 hd={hd} routes to {cuda_kernel}")
             views = [x.view(B, S, H, hd).transpose(1, 2) for x in (q, k, v)]
-            ms = cuda_time_ms(lambda: vit_attention(q, k, v, H), 20)
-            plain_ms = cuda_time_ms(lambda: vit_attention_reference(q, k, v, H), 5, 1)
-            lib_ms = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(*views), 20)
+            ms = cuda_time_ms(lambda: va.vit_attention(q, k, v, H), 20)
+            plain_ms = cuda_time_ms(lambda: va.vit_attention_reference(q, k, v, H), 5, 1)
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*views), 20)
+            flash_ms = None
+            if tag == "bf16" and hd in fa.HEAD_DIMS:
+                # reference point: the flash kernel on the same tensors
+                q4, k4, v4 = (x.view(B, S, H, hd) for x in (q, k, v))
+                o4, lib = torch.empty_like(q4), fa._load()
+                flash_ms = cuda_time_ms(
+                    lambda: fa.launch(lib, q4, k4, v4, o4, None, False, None, 0), 20)
             bound_ms, bound_by = bound(4 * B * S * W * q.element_size(),
                                        4 * B * S * S * W, tag)
-            print(json.dumps({"phase": 1, "kernel": "vit_attention", "B": B,
-                              "S": S, "W": W, "heads": H, "dtype": tag,
-                              "max_abs_err": err, "min_row_cos": cos,
-                              "kernel_ms": ms, "plain_ms": plain_ms,
-                              "library_ms": lib_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by}))
-            if (B, S, tag) == (256, 257, "bf16"):
-                row = {"name": "vit_attention", "route": "cuda",
-                       "source": "tspo_tpu_torch/csrc/vit_attention.cu",
-                       "replaces": "tspo_tpu/ops/vit_attention.py:29",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": lib_ms}
-            del q, k, v, out, ref, views
-    torch.cuda.empty_cache()
-    return row
+            print(json.dumps({"phase": 1, "kernel": "vit_attention", "case": name,
+                              "cuda_kernel": cuda_kernel, "B": B, "S": S, "W": W,
+                              "heads": H, "dtype": tag, "max_abs_err": err,
+                              "min_row_cos": cos, "kernel_ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "flash_attention_ms": flash_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "tflops": 4 * B * S * S * W / ms / 1e9}))
+            if tag == "bf16":
+                shapes[name] = {"B": B, "S": S, "W": W, "heads": H, "max_abs_err": err,
+                                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib_ms}
+            del q, k, v, views
+            torch.cuda.empty_cache()
+    clip = shapes["clip"]
+    return {"name": "vit_attention", "route": "cuda",
+            "source": "tspo_tpu_torch/csrc/vit_attention.cu",
+            "replaces": "tspo_tpu/ops/vit_attention.py:29",
+            **{key: clip[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "shapes": shapes}
 
 
 def _live_keys(lengths, Sq: int, causal: bool, window, q_offset: int):
@@ -642,8 +749,10 @@ def phase_main_scoring(seed: int):
     timed score_video_fused run, its indices, the frames)."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from tspo_tpu_torch.cli.common import _stub_tokenizer
     from tspo_tpu_torch.models.tspo_model import build_random_scorer
+    from tspo_tpu_torch.ops import vit_attention as va
     T, k = 300, N_SELECT
     scorer = build_random_scorer(torch.Generator().manual_seed(seed),
                                  dtype=torch.bfloat16, device="cuda",
@@ -651,8 +760,15 @@ def phase_main_scoring(seed: int):
     frames = smooth_frames(torch.Generator().manual_seed(seed + 2), T)
     questions = [QUESTION, "where does the scene change?",
                  "how many people appear?"]
-    scorer.score_video_fused(frames, questions[0], sample_num=k)   # warm-up
-    torch.cuda.synchronize()
+    # warm-up, under the profiler: which CUDA kernel each vit_attention
+    # launch ran
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scorer.score_video_fused(frames, questions[0], sample_num=k)
+        torch.cuda.synchronize()
+    ran = cuda_kernels_run(prof, va.KERNELS)
+    check(ran == {"vit_attention_wgmma_kernel": 46},
+          f"score_video_fused's vit_attention launches ran {ran}, want "
+          f"vit_attention_wgmma_kernel 46 times")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -692,7 +808,8 @@ def phase_main_scoring(seed: int):
                       "shared_encode_s": t_enc, "shared_3q_s": t_q,
                       "shared_frames_per_s": 3 * T / (t_enc + t_q),
                       "launches_fused": launches["vit_attention"],
-                      "launches_encode": shared_launches}))
+                      "launches_encode": shared_launches,
+                      "vit_kernels_warmup": ran}))
     del scorer, feats
     torch.cuda.empty_cache()
     return launches["vit_attention"], idx, frames
@@ -707,6 +824,7 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
     from tspo_tpu_torch.ops import flash_attention as fa
+    from tspo_tpu_torch.ops import vit_attention as va
     from tspo_tpu_torch.tools.profile_answer import timed_answer
     encode, decode = stub_qwen_tokenizer()
     cfg = LLaVAVideoConfig()
@@ -724,12 +842,16 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.generate(selected, QUESTION, max_new_tokens=n_new)
         sync()
-    ran = Counter(name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  for name in fa.KERNELS if name in e.name)
+    ran = cuda_kernels_run(prof, fa.KERNELS)
     want = fa.kernel_name(torch.bfloat16, cfg.lm.head_dim)
-    check(dict(ran) == {want: 28}, f"an answer's flash launches ran {dict(ran)}, "
+    check(ran == {want: 28}, f"an answer's flash launches ran {ran}, "
           f"want {want} 28 times (one per layer)")
+    ran_vit = cuda_kernels_run(prof, va.KERNELS)
+    want_vit = va.kernel_name(torch.bfloat16, cfg.vision.width // cfg.vision.heads)
+    check(want_vit == "vit_attention_wgmma_kernel"
+          and ran_vit == {want_vit: 26 * -(-len(selected) // model.batch_frames)},
+          f"an answer's vit_attention launches ran {ran_vit}, want {want_vit} "
+          f"26 times a vision chunk")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -779,7 +901,8 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
                       "max_memory_allocated_gb": peak / 1e9,
                       "host_cpus": os.cpu_count(),
                       "host_loadavg_1m": os.getloadavg()[0],
-                      "launches": launches, "flash_kernels_warmup": dict(ran),
+                      "launches": launches, "flash_kernels_warmup": ran,
+                      "vit_kernels_warmup": ran_vit,
                       "answer_head": toks[:4]}))
     del model, runs
     torch.cuda.empty_cache()
@@ -843,9 +966,12 @@ def main(argv=None):
     variant_rows = phase_kernel_variants(args.seed)
     phase_parity_scorer(args.seed)
     phase_parity_llava(args.seed)
-    vit_row["launches"], idx, frames = phase_main_scoring(args.seed)
-    flash_row["launches"] = phase_main_answer(args.seed, frames, idx,
-                                              s_main)["flash_attention"]
+    n_score, idx, frames = phase_main_scoring(args.seed)
+    answer = phase_main_answer(args.seed, frames, idx, s_main)
+    vit_row["shapes"]["clip"]["launches"] = n_score
+    vit_row["shapes"]["siglip"]["launches"] = answer["vit_attention"]
+    vit_row["launches"] = n_score + answer["vit_attention"]
+    flash_row["launches"] = answer["flash_attention"]
     phase_bench(args.seed, variant_rows)
     print(json.dumps({"kernels": [vit_row, flash_row]
                       + [variant_rows[r[0]] for r in VARIANT_ROWS]}))

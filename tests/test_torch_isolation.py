@@ -164,6 +164,12 @@ def test_flash_form_comparison_needs_a_card(monkeypatch, tmp_path):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         cmp.main([str(tmp_path / "old.cu")])
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        cmp.main(["--kernel", "vit_attention", str(tmp_path / "old.cu")])
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        cmp.compare([tmp_path / "old.cu"], kernel="lane_attention")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="distinct file name"):
-        cmp.compare([tmp_path / "a" / "f.cu", tmp_path / "b" / "f.cu"])
+    for kernel in cmp.KERNELS:
+        with pytest.raises(ValueError, match="distinct file name"):
+            cmp.compare([tmp_path / "a" / "f.cu", tmp_path / "b" / "f.cu"],
+                        kernel=kernel)

@@ -7,7 +7,7 @@ Counterpart of ``tspo_tpu/ops/vit_attention.py::vit_attention`` (the Pallas
 [:, h*hd:(h+1)*hd], computes softmax(q kᵀ/√hd) in fp32, casts the
 probabilities to the input type and multiplies by v with fp32 accumulation.
 
-Three parts:
+Its parts:
 
 - :func:`vit_attention`, the wrapper: a CPU tensor goes to the plain version;
   a CUDA tensor launches the kernel on the current stream or raises.  It
@@ -17,7 +17,15 @@ Three parts:
   against it on the card.
 - :func:`build`, which compiles the CUDA source with ``nvcc`` for sm_90a into
   a shared library with a plain C interface at first use, keyed by a hash of
-  the source (``utils/cuda_build.py``, shared by every kernel).
+  the source (``utils/cuda_build.py``, shared by every kernel);
+  :func:`kernel_name` and :func:`kernel_attributes` say which CUDA kernel the
+  source routes a (dtype, hd) to (``vit_attention_wgmma_kernel`` for bf16 at
+  hd 64 and 72, in its "resident" form for hd 64 up to S = 264 and its
+  "streamed" form otherwise; ``vit_attention_bf16_kernel`` for the other bf16
+  head dims; ``vit_attention_f32_kernel`` for fp32) and its registers, shared
+  memory and resident blocks per SM.  :func:`launch` is the raw launch,
+  which ``tools/compare_flash_forms.py --kernel vit_attention`` also uses on
+  other builds of the source.
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ from ..utils import cuda_build
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# the CUDA kernels of the source, by the index tspo_vit_attention_route gives
+KERNELS = ("vit_attention_wgmma_kernel", "vit_attention_bf16_kernel",
+           "vit_attention_f32_kernel")
+FORMS = ("resident", "streamed")   # vit_attention_wgmma_kernel's two forms
 
 
 def build() -> Path:
@@ -41,7 +53,43 @@ def build() -> Path:
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("vit_attention", {"tspo_vit_attention": _ARGTYPES})
+    return cuda_build.load("vit_attention", {
+        "tspo_vit_attention": _ARGTYPES,
+        "tspo_vit_attention_route": [ctypes.c_int, ctypes.c_int],
+        "tspo_vit_attention_attributes": [ctypes.c_int] * 3 + [ctypes.c_void_p]})
+
+
+def _route_args(dtype: torch.dtype, hd: int) -> tuple:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"vit_attention kernel takes bf16 or fp32, not {dtype}")
+    if hd <= 0 or hd % 8 or hd > 128:
+        raise ValueError(f"vit_attention kernel takes hd % 8 == 0 and hd <= 128, "
+                         f"got hd={hd}")
+    return hd, int(dtype == torch.bfloat16)
+
+
+def kernel_name(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel a launch at (dtype, hd) runs, as the source routes it
+    (builds the library)."""
+    args = _route_args(dtype, hd)
+    return KERNELS[_load().tspo_vit_attention_route(*args)]
+
+
+def kernel_attributes(dtype: torch.dtype, hd: int, seq: int) -> dict:
+    """Registers a thread at launch, shared memory a block (bytes), resident
+    blocks an SM and threads a block of the kernel a launch at (dtype, hd,
+    sequence length ``seq``) runs, and its form (None outside the wgmma
+    kernel), from ``cudaFuncGetAttributes`` and the occupancy API on the
+    current card."""
+    args = _route_args(dtype, hd)
+    out = (ctypes.c_int * 5)()
+    err = _load().tspo_vit_attention_attributes(*args, seq, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"vit_attention attributes failed: CUDA error {err}")
+    return {"kernel": kernel_name(dtype, hd),
+            "form": FORMS[out[4]] if out[4] >= 0 else None,
+            "registers": out[0], "shared_bytes": out[1], "blocks_per_sm": out[2],
+            "threads": out[3]}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,6 +126,20 @@ def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(B, S, W)
 
 
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, heads: int) -> int:
+    """One launch of ``lib``'s ``tspo_vit_attention`` on the current stream
+    into ``out``, with no checks and no count (the wrapper's checks come
+    first); returns the CUDA error code."""
+    B, S, W = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        return lib.tspo_vit_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, W, heads, float(1.0 / np.sqrt(W // heads)),
+            int(q.dtype == torch.bfloat16), stream)
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   heads: int) -> torch.Tensor:
     """Unmasked multi-head attention over [B, S, W] (W = heads * hd).
@@ -85,17 +147,14 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`vit_attention_reference`.  CUDA tensors launch
     the Hopper kernel on ``torch.cuda.current_stream()``: bf16 or fp32,
     contiguous, 16-byte aligned, hd a multiple of 8 up to 128, on an sm_90
-    card.  Anything else raises; nothing falls back."""
+    card.  Anything else raises, and so does a launch the card refuses (a
+    tensor map that cannot be encoded among them); nothing falls back."""
     hd = _check(q, k, v, heads)
     if q.device.type == "cpu":
         return vit_attention_reference(q, k, v, heads)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"vit_attention kernel takes bf16 or fp32, not {q.dtype}")
-    if hd % 8 or hd > 128:
-        raise ValueError(f"vit_attention kernel takes hd % 8 == 0 and hd <= 128, "
-                         f"got hd={hd}")
+    _route_args(q.dtype, hd)
     B, S, W = q.shape
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel grid limit 65535")
@@ -108,14 +167,8 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cap != (9, 0):
         raise RuntimeError(f"vit_attention kernel is built for sm_90a; "
                            f"device {q.device} is sm_{cap[0]}{cap[1]}")
-    lib = _load()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tspo_vit_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, W, heads, float(1.0 / np.sqrt(hd)),
-            int(q.dtype == torch.bfloat16), stream)
+    err = launch(_load(), q, k, v, out, heads)
     if err != 0:
         raise RuntimeError(f"vit_attention kernel launch failed: CUDA error {err}")
     vit_attention.launches += 1
