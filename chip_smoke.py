@@ -14,12 +14,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    shape and the SigLIP answer shape, the wgmma kernel's tile edges (bf16 at
    hd 64 and 72, S from 1 to 730, B of 1, 3, 44 and the main path's), a NaN
    frame beside a clean one, inf in the next head's columns, and the other
-   head dims the source takes (16, 32, 80, 128) in both types; each case
-   names the CUDA kernel it ran and the wgmma kernel's form, and the
-   registers, shared memory and blocks per SM of each kernel are printed;
-   at the CLIP shape ``flash_attention``'s kernel on the same tensors is
-   timed as a reference point.  ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
-   (the prompt length of phase 4), ragged B=2, a ``q_offset`` suffix, a
+   head dims the source takes (16, 32, 80, 128) in both types, and the
+   training path's shapes (SigLIP at B=16 and 8, CLIP at B=128 and at the
+   ragged last chunk of a needle composite); each case names the CUDA kernel it ran and the
+   wgmma kernel's form, and the registers, shared memory and blocks per SM
+   of each kernel are printed; at the CLIP shape ``flash_attention``'s
+   kernel on the same tensors is timed as a reference point.
+   ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
+   (the prompt length of phase 4), at each training rollout's prefill (16
+   and 8 frames), ragged B=2, a ``q_offset`` suffix, a
    sliding ``window``, the wgmma kernel's tile edges (Sq and Sk off a
    multiple of 128, lengths mid-tile and on a tile edge, ``q_offset`` off a
    multiple of 128, a window across tile edges, k/v as a slice of a longer
@@ -63,6 +66,23 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    ``greedy_decode``'s prefill and decode steps timed by CUDA events inside
    its own loop: stage times, time to first token, decode ms per step, peak
    memory.
+4b. Training main path: ``TSPOTrainer.train_step`` on phase 3's scorer and
+   phase 4's model, ``TrainConfig(num_generations=8, training_sample_len=16,
+   window_size=12, grad_accum=2)``, 4 steps over the rows specific, general,
+   specific, specific (``seeded_decoder`` stands in for the video decoder:
+   seeded 480x640 frames; a specific row is a needle composite of 1-4 true
+   and 12 distractor clips of 50 frames), each rollout answering in at most
+   8 tokens.  Each step launches exactly 23 ceil(T/256) + 8 x 26 ceil(K/64)
+   ``vit_attention`` and 8 x 28 ``flash_attention`` kernels (step 1 under
+   ``torch.profiler``: all on the wgmma kernels); loss and grad norm finite,
+   grad norm > 0 on the specific steps; the selector unchanged after steps 1
+   and 3 and changed after 2 and 4, CLIP unchanged; step 1's update repeated
+   on a copy of the selector on the card and on the CPU at ``grad_accum`` 1
+   (``_update_parity``); a checkpoint resumed by a fresh trainer, and the
+   merged export read back by ``TSPOScorer.load`` with equal logits.  Stage
+   times per step (decode + composite, features, sampling, rollouts,
+   update), rollouts/s, peak memory, and one rollout split as phase 4
+   splits an answer.
    Every kernel count is set to 0 just before and read just after each
    path of phases 3 to 5.
 5. Variant bench main path: ``tools/bench_vit_attention_variants.run`` over
@@ -72,9 +92,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    ``sdpa``), and the exact-attention variants agree with ``plain`` (cosine
    >= 0.9998 at B=8).
 6. One JSON line listing every ported kernel with its launches, error and
-   times (``vit_attention``'s row at the CLIP shape, with both main-path
-   shapes and each one's launches under ``shapes``); then, as the last
-   line, ``{"ok": true, "device": {...}}``.
+   times (``vit_attention``'s row at the CLIP shape, with every main-path
+   shape under ``shapes``; ``flash_attention``'s rollout prefills under
+   ``shapes``; the training launches of each under ``train``); then, as
+   the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
 any check fails.  Imports nothing of JAX or of the JAX package.
@@ -91,7 +112,7 @@ import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from functools import partial
+from functools import partial, wraps
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -101,11 +122,38 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # fp32 outside the tensor cores
 N_SELECT = 64                                   # frames the scorer picks
 QUESTION = "what is the person holding?"
+# phase 4b: the training rows' question (options and boilerplate as in the
+# reference's jsonl), their types in step order, and the selector's subset
+# size K for each type (training_sample_len 16; general rows take half)
+TRAIN_QUESTION = ("<image>\nWhat is the person holding?\nA. a cup\nB. a phone\n"
+                  "C. a book\nD. nothing\nPlease respond with only the letter of "
+                  "the correct answer.")
+TRAIN_TYPES = ("specific", "general", "specific", "specific")
+TRAIN_K = {"specific": 16, "general": 8}
 
 
 def check(cond: bool, msg: str):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def without_tf32(fn):
+    """Run ``fn`` with TF32 off for matmuls and cuDNN (a check against fp32
+    plain versions), and give the flags back as they were, so the phases
+    that drive the main path run under the user's defaults."""
+    @wraps(fn)
+    def wrapped(*args, **kwargs):
+        import torch
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    return wrapped
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -138,25 +186,35 @@ def smooth_frames(gen, n: int, h: int = 480, w: int = 640):
     return low.repeat_interleave(h // 12, 1).repeat_interleave(w // 16, 2).numpy()
 
 
-def answer_prompt_len(n_frames: int) -> int:
-    """Tokens of the answer path's prompt: the qwen_1_5 prompt through the
-    stub tokenizer, with the <image> sentinel replaced by the video tokens."""
+def answer_prompt_len(n_frames: int, question: str = QUESTION) -> int:
+    """Tokens of an answer's prompt: the qwen_1_5 prompt through the stub
+    tokenizer, with the <image> sentinel replaced by the video tokens."""
     from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
     from tspo_tpu_torch.models.conversation import build_prompt
     from tspo_tpu_torch.models.llava_video import (LLaVAVideoConfig,
                                                    tokenize_with_image)
     encode, _ = stub_qwen_tokenizer()
-    ids = tokenize_with_image(build_prompt(QUESTION, "qwen_1_5"), encode)
+    ids = tokenize_with_image(build_prompt(question, "qwen_1_5"), encode)
     return len(ids) - 1 + n_frames * LLaVAVideoConfig().tokens_per_frame
+
+
+def rollout_question() -> str:
+    """The question each training rollout answers: the row's question without
+    boilerplate, plus the trainer's letter-answer trailer."""
+    from tspo_tpu_torch.train.rewards import clean_question
+    from tspo_tpu_torch.train.trainer import ANSWER_TRAILER
+    return clean_question(TRAIN_QUESTION) + ANSWER_TRAILER
 
 
 def cuda_kernels_run(prof, kernels) -> dict:
     """{kernel: launches} of the CUDA kernels in ``kernels`` that a
-    torch.profiler trace saw run on the card."""
+    torch.profiler trace saw run on the card, read from the trace's raw
+    kineto events: parsing a GRPO step's trace into ``prof.events()`` took
+    75 s."""
     import torch
-    return dict(Counter(name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        for name in kernels if name in e.name))
+    return dict(Counter(name for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == torch.autograd.DeviceType.CUDA
+                        for name in kernels if name in e.name()))
 
 
 def reset_counts():
@@ -195,9 +253,16 @@ def phase_card():
     return smi
 
 
-# the scoring path's CLIP shape and the answer path's SigLIP shape of
-# vit_attention: name -> (B, S, W, heads)
-VIT_MAIN = {"clip": (256, 257, 1024, 16), "siglip": (N_SELECT, 729, 1152, 16)}
+# vit_attention's main-path shapes, name -> (B, S, W, heads): the scoring
+# path's CLIP chunk and the answer path's SigLIP; the training path's
+# SigLIP rollouts (K = 16 and 8 frames), a general row's one CLIP chunk of
+# 128 decoded frames, and the ragged last CLIP chunk of a needle composite
+# ((1 to 4 + 12) clips of 50 frames: T mod 256)
+VIT_MAIN = {"clip": (256, 257, 1024, 16), "siglip": (N_SELECT, 729, 1152, 16),
+            "siglip_k16": (16, 729, 1152, 16), "siglip_k8": (8, 729, 1152, 16),
+            "clip_b128": (128, 257, 1024, 16),
+            **{f"clip_tail_{t % 256}": (t % 256, 257, 1024, 16)
+               for t in (650, 700, 750, 800)}}
 # the wgmma kernel's tile edges: 64-row query tiles, the 256-key box and its
 # tail (resident form, hd 64 up to S=264), 128-row and 128-key tiles
 # (streamed form)
@@ -244,6 +309,7 @@ def _vit_case(gen, B, S, H, hd, dtype, tag, poison=None):
     return q, k, v, err, cos
 
 
+@without_tf32
 def phase_kernel_vit(seed: int) -> dict:
     """vit_attention against its plain version at the wgmma kernel's tile
     edges, both poison cases and every other head dim; times at both
@@ -252,7 +318,6 @@ def phase_kernel_vit(seed: int) -> dict:
     import torch.nn.functional as F
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     for tag, hd, S in (("bf16", 64, 257), ("bf16", 64, 729), ("bf16", 72, 729),
@@ -403,14 +468,17 @@ def flash_inputs(gen, B, Sq, Sk, H, KV, hd, lens, dtype, source):
     return q, k, v, k, v
 
 
-def phase_kernel_flash(seed: int, s_main: int) -> dict:
-    """flash_attention against its plain version; returns the main-path row."""
+@without_tf32
+def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict) -> dict:
+    """flash_attention against its plain version, at every case of
+    ``FLASH_CASES`` and at each training rollout's prefill
+    (``s_rollouts``: name -> prompt tokens); returns the main-path row,
+    with the rollout shapes under ``shapes``."""
     import torch
     import torch.nn.functional as F
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_reference)
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     row = None
     x = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
@@ -426,8 +494,11 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
         for hd in fa.HEAD_DIMS:
             print(json.dumps({"phase": 1, "kernel": "flash_attention", "dtype": tag,
                               "hd": hd, **fa.kernel_attributes(dtype, hd)}))
+    rollout_cases = [(name, 1, sq, sq, 28, 4, 128, True, None, None, 0, "bf16", None)
+                     for name, sq in s_rollouts.items()]
+    shapes = {}
     for (name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, tag,
-         source) in FLASH_CASES:
+         source) in FLASH_CASES + rollout_cases:
         Sq, Sk = Sq or s_main, Sk or s_main
         dtype = dtypes[tag]
         cuda_kernel = fa.kernel_name(dtype, hd)
@@ -487,8 +558,13 @@ def phase_kernel_flash(seed: int, s_main: int) -> dict:
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": lib_ms}
+        if name in s_rollouts:
+            shapes[name] = {"Sq": Sq, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v, k_ref, v_ref, out, ref
     torch.cuda.empty_cache()
+    row["shapes"] = shapes
     return row
 
 
@@ -584,6 +660,7 @@ def _variant_cases(q, k, v, H, w):
     return cases
 
 
+@without_tf32
 def phase_kernel_variants(seed: int) -> dict:
     """Every variant-bench kernel against its plain version; returns the
     kernels-line row of each PERF.md row 3-11, keyed by its variant."""
@@ -591,7 +668,6 @@ def phase_kernel_variants(seed: int) -> dict:
     import torch
     from tspo_tpu_torch.ops import vit_attention_variants as vv
     from tspo_tpu_torch.tools.bench_vit_attention_variants import bound_ms
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     main_shape = (256, 257, 1024, 16)
     shapes = [main_shape, (3, 40, 128, 2), (3, 40, 1024, 16), (4, 40, 128, 2)]
@@ -651,14 +727,13 @@ def phase_kernel_variants(seed: int) -> dict:
     return rows
 
 
+@without_tf32
 def phase_parity_scorer(seed: int):
     """Full-width fp32 scorer: card (kernel) against CPU (plain versions)."""
     import numpy as np
     import torch
     from tspo_tpu_torch.cli.common import _stub_tokenizer
     from tspo_tpu_torch.models.tspo_model import build_random_scorer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     frames = smooth_frames(torch.Generator().manual_seed(seed + 1), 8)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -682,6 +757,7 @@ def phase_parity_scorer(seed: int):
     torch.cuda.empty_cache()
 
 
+@without_tf32
 def phase_parity_llava(seed: int):
     """LLaVA-Video at published widths, 2 + 2 layers, fp32: the same weights
     from the seed answer on the CPU (plain versions), then on the card
@@ -691,8 +767,6 @@ def phase_parity_llava(seed: int):
     from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
     from tspo_tpu_torch.models.qwen2 import KVCache, Qwen2Config, greedy_decode
     from tspo_tpu_torch.models.siglip import SigLIPConfig
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = LLaVAVideoConfig(lm=dataclasses.replace(Qwen2Config(), num_layers=2),
                            vision=dataclasses.replace(SigLIPConfig(), layers=2))
     encode, decode = stub_qwen_tokenizer()
@@ -746,7 +820,7 @@ def phase_parity_llava(seed: int):
 
 def phase_main_scoring(seed: int):
     """The scoring main path at full width in bf16; returns (launches of the
-    timed score_video_fused run, its indices, the frames)."""
+    timed score_video_fused run, its indices, the frames, the scorer)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -810,14 +884,14 @@ def phase_main_scoring(seed: int):
                       "launches_fused": launches["vit_attention"],
                       "launches_encode": shared_launches,
                       "vit_kernels_warmup": ran}))
-    del scorer, feats
+    del feats
     torch.cuda.empty_cache()
-    return launches["vit_attention"], idx, frames
+    return launches["vit_attention"], idx, frames, scorer
 
 
-def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
+def phase_main_answer(seed: int, frames, idx, s_expect: int):
     """The answer main path at full width and depth in bf16; returns the
-    kernels' launches in the timed generate run."""
+    kernels' launches in the timed generate run, and the model."""
     import numpy as np
     import torch
     from tspo_tpu_torch.cli.common import stub_qwen_tokenizer
@@ -904,9 +978,283 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int) -> dict:
                       "launches": launches, "flash_kernels_warmup": ran,
                       "vit_kernels_warmup": ran_vit,
                       "answer_head": toks[:4]}))
-    del model, runs
+    del runs
     torch.cuda.empty_cache()
-    return launches
+    return launches, model
+
+
+def seeded_decoder(seed: int):
+    """A ``load_video`` in place of the decoder (the card's machine has no
+    video decoder): seeded 480x640 frames for each path, up to 128 of them,
+    the same for a path every time."""
+    import zlib
+
+    import torch
+
+    def load_video(path, max_frames_num=256, fps=1, min_frames_num=50,
+                   force_sample=False):
+        gen = torch.Generator().manual_seed(seed * 7919 + zlib.crc32(path.encode()))
+        return smooth_frames(gen, min(max_frames_num, 128)), None, None
+    return load_video
+
+
+@without_tf32
+def _update_parity(update, trainer, args) -> dict:
+    """One full-width ``selector_update_step`` at ``grad_accum`` 1 on a copy
+    of the selector on the card (TF32 off) and on the CPU, from the same
+    batch, subsets and rewards (step 1's): loss within 1e-5, grad norm within
+    1e-4 relative, each parameter's gradient at cosine >= 0.9999 where its
+    norm is at least 1e-3 of the largest (the key bias's exact gradient is
+    0: a softmax ignores a shift common to its row; ``ffn_o`` is unused)
+    and within 1e-5 of the largest entry elsewhere."""
+    import copy
+
+    import torch
+    from tspo_tpu_torch.train import grpo
+    batch, subsets, rewards, tau = args
+    cfg1 = dataclasses.replace(trainer.cfg, grad_accum=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sel = copy.deepcopy(trainer.scorer.selector).to(dev)
+        opt = grpo.make_optimizer(cfg1, sel.parameters())
+        m = update(sel, opt, grpo.TrainBatch(*(x.to(dev) for x in batch)),
+                   grpo.SampledSubsets(*(x.to(dev) for x in subsets)),
+                   rewards.to(dev), tau, train_cfg=cfg1,
+                   window_size=trainer.cfg.window_size)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {n: p.grad.detach().double().cpu() for n, p in sel.named_parameters()})
+        del sel, opt
+    (mc, gc), (mh, gh) = out["cuda"], out["cpu"]
+    norms = {n: g.norm().item() for n, g in gh.items()}
+    top, top_abs = max(norms.values()), max(g.abs().max().item() for g in gh.values())
+    cos, small = {}, {}
+    for n in gh:
+        if norms[n] >= 1e-3 * top:
+            cos[n] = torch.nn.functional.cosine_similarity(
+                gc[n].flatten(), gh[n].flatten(), dim=0).item()
+        else:
+            small[n] = (gc[n] - gh[n]).abs().max().item()
+    res = {"loss_card": mc["loss"], "loss_cpu": mh["loss"],
+           "grad_norm_card": mc["grad_norm"], "grad_norm_cpu": mh["grad_norm"],
+           "grad_cos_min": min(cos.values()), "grad_cos": cos,
+           "small_grad_max_abs_diff": small, "grad_norms_cpu": norms}
+    check(abs(mc["loss"] - mh["loss"]) <= 1e-5, f"update parity loss {res}")
+    check(abs(mc["grad_norm"] - mh["grad_norm"]) <= 1e-4 * mh["grad_norm"],
+          f"update parity grad norm {res}")
+    check(min(cos.values()) >= 0.9999 and all(d <= 1e-5 * top_abs for d in small.values()),
+          f"update parity gradients {res}")
+    return res
+
+
+def phase_main_train(seed: int, scorer, model) -> dict:
+    """The training main path at full width: ``TSPOTrainer.train_step`` on
+    the phase-3 scorer (CLIP-ViT-L/14 bf16 + the fp32 selector) and the
+    phase-4 LLaVA-Video-7B-Qwen2, G=8, four steps (specific, general,
+    specific, specific) at ``grad_accum`` 2; returns the launches of the
+    four steps."""
+    import shutil
+    from collections import defaultdict
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tspo_tpu_torch.configs import TrainConfig
+    from tspo_tpu_torch.models.selector import init_selector
+    from tspo_tpu_torch.models.tspo_model import TSPOScorer
+    from tspo_tpu_torch.ops import flash_attention as fa
+    from tspo_tpu_torch.ops import vit_attention as va
+    from tspo_tpu_torch.ops.masking import bucket_for
+    from tspo_tpu_torch.tools.profile_answer import timed_answer
+    from tspo_tpu_torch.train import grpo
+    from tspo_tpu_torch.train import trainer as trainer_mod
+    from tspo_tpu_torch.video import reader
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = TrainConfig(num_generations=8, training_sample_len=16, window_size=12,
+                      grad_accum=2, seed=seed)
+    G = cfg.num_generations
+    rows = [{"video": "v0.mp4", "original_question": TRAIN_QUESTION,
+             "solution": "<answer>A</answer>", "type": t} for t in TRAIN_TYPES]
+    pool = [{"video": f"d{i}.mp4"} for i in range(8)]
+    # the reference trainer passes no token budget: the model's attribute
+    # bounds each rollout's answer
+    model.max_new_tokens = 8
+    saved = (trainer_mod.load_video, reader.load_video, trainer_mod.sample_subsets,
+             trainer_mod.selector_update_step)
+    clock, seen = defaultdict(float), {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            clock[name] += time.perf_counter() - t0
+            if name == "features":
+                seen["T"] = int(out[0].shape[0])
+            if name == "update" and "args" not in seen:
+                seen["args"] = (a[2], a[3], a[4], a[5])
+            if name == "rollouts":
+                seen["rollout"] = a
+            return out
+        return run
+
+    trainer_mod.load_video = reader.load_video = seeded_decoder(seed)
+    trainer_mod.sample_subsets = timed("sampling", saved[2])
+    trainer_mod.selector_update_step = timed("update", saved[3])
+    model.generate = timed("rollouts", model.generate)
+    try:
+        trainer = trainer_mod.TSPOTrainer(
+            scorer=scorer, backbone=model, dataset=rows, cfg=cfg,
+            irrelevant_pool=pool, output_dir=str(work / "train"))
+        trainer.prepare_sample = timed("decode_composite", trainer.prepare_sample)
+        trainer.features = timed("features", trainer.features)
+        clip_before = {k: v.clone() for k, v in scorer.clip.state_dict().items()}
+        steps, parity, ran = [], None, None
+        for i, row in enumerate(rows):
+            sel_before = {k: v.clone() for k, v in scorer.selector.state_dict().items()}
+            clock.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            if i == 0:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    m = trainer.train_step(row)
+                    sync()
+            else:
+                m = trainer.train_step(row)
+                sync()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            trainer.step += 1
+            T, K = seen["T"], int(m["ts_length"])
+            check(K == TRAIN_K[row["type"]], f"step {i + 1}: K={K}")
+            want = {"vit_attention": 23 * -(-T // scorer.batch_frames)
+                    + G * 26 * -(-K // model.batch_frames),
+                    "flash_attention": G * 28}
+            check(launches == want, f"train step {i + 1} (T={T}, K={K}) launched "
+                  f"{launches}, want {want}")
+            if i == 0:
+                t0 = time.perf_counter()
+                ran = cuda_kernels_run(prof, va.KERNELS + fa.KERNELS)
+                t_read = time.perf_counter() - t0
+                check(ran == {"vit_attention_wgmma_kernel": want["vit_attention"],
+                              "flash_wgmma_kernel": want["flash_attention"]},
+                      f"train step 1's launches ran {ran}, want every one on "
+                      "vit_attention_wgmma_kernel or flash_wgmma_kernel")
+                del prof
+            check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                  f"step {i + 1}: loss {m['loss']} grad norm {m['grad_norm']}")
+            if row["type"] == "specific":
+                check(m["grad_norm"] > 0, f"step {i + 1} (specific): grad norm 0 "
+                      f"(rewards/temporal_reward {m['rewards/temporal_reward']})")
+            changed = any(not torch.equal(v, sel_before[k])
+                          for k, v in scorer.selector.state_dict().items())
+            check(changed == ((i + 1) % cfg.grad_accum == 0),
+                  f"step {i + 1}: selector changed={changed} at grad_accum "
+                  f"{cfg.grad_accum}")
+            if i == 0:
+                t0 = time.perf_counter()
+                parity = _update_parity(saved[3], trainer, seen["args"])
+                t_parity = time.perf_counter() - t0
+            stages = dict(clock)
+            steps.append({"step": i + 1, "type": row["type"], "T": T,
+                          "bucket": bucket_for(T, scorer.frame_buckets), "K": K,
+                          "wall_s": wall, **{f"{k}_s": v for k, v in stages.items()},
+                          "rollouts_per_s": G / stages["rollouts"],
+                          "launches": launches, "loss": m["loss"],
+                          "grad_norm": m["grad_norm"], "reward": m["reward"],
+                          "reward_std": m["reward_std"],
+                          "temporal_reward": m.get("rewards/temporal_reward"),
+                          "selector_changed": changed, "profiled": i == 0,
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+            print(json.dumps({"phase": "4b", **steps[-1]}))
+        check(all(torch.equal(v, clip_before[k])
+                  for k, v in scorer.clip.state_dict().items()),
+              "the CLIP parameters changed during training")
+        del clip_before
+        # where a rollout's time goes: step 4's last rollout again, through
+        # the calls generate makes, three times
+        frames_r, question_r = seen["rollout"][:2]
+        split = [timed_answer(model, frames_r, question_r, model.max_new_tokens)[1]
+                 for _ in range(3)]
+        rollout_split = {k: float(np.median([r[k] for r in split]))
+                         for k in split[0]}
+
+        # checkpoint: a fresh trainer (same CLIP, another selector) resumes
+        t0 = time.perf_counter()
+        trainer.save_checkpoint()
+        fresh = trainer_mod.TSPOTrainer(
+            scorer=TSPOScorer(scorer.clip, init_selector(
+                scorer.selector_cfg, torch.Generator().manual_seed(seed + 9)),
+                clip_cfg=scorer.clip_cfg, selector_cfg=scorer.selector_cfg,
+                tokenize=scorer.tokenize, batch_frames=scorer.batch_frames,
+                dtype=scorer.dtype, device="cuda"),
+            backbone=model, dataset=rows, cfg=cfg, output_dir=trainer.output_dir)
+        check(fresh.resume_from() == len(rows), "resumed step")
+        check(all(torch.equal(a, b) for a, b in zip(
+            scorer.selector.parameters(), fresh.scorer.selector.parameters())),
+            "resumed selector parameters differ")
+        st_a = grpo.optimizer_state(trainer.optimizer, scorer.selector)
+        st_b = grpo.optimizer_state(fresh.optimizer, fresh.scorer.selector)
+        check((st_a["step"], st_a["mini_step"]) == (st_b["step"], st_b["mini_step"])
+              and all(np.array_equal(st_a[g][n], st_b[g][n])
+                      for g in ("exp_avg", "exp_avg_sq", "acc_grads") for n in st_a[g]),
+              "resumed optimizer state differs")
+        t_ckpt = time.perf_counter() - t0
+        del fresh
+
+        # merged export, read back on the card
+        t0 = time.perf_counter()
+        path = trainer.export_merged(str(work / "merged"))
+        loaded = TSPOScorer.load(path, clip_cfg=scorer.clip_cfg,
+                                 dtype=scorer.dtype, device="cuda",
+                                 tokenize=scorer.tokenize,
+                                 batch_frames=scorer.batch_frames)
+        sd_a, sd_b = scorer.clip.state_dict(), loaded.clip.state_dict()
+        check(all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+              and all(torch.equal(a, b) for a, b in zip(
+                  scorer.selector.parameters(), loaded.selector.parameters())),
+              "the exported weights differ")
+        frames = smooth_frames(torch.Generator().manual_seed(seed + 8), 96)
+        idx_a, log_a = scorer.score_video_fused(frames, QUESTION, sample_num=16)
+        idx_b, log_b = loaded.score_video_fused(frames, QUESTION, sample_num=16)
+        check(np.array_equal(idx_a, idx_b) and np.array_equal(log_a, log_b),
+              f"exported scorer's logits differ by {np.abs(log_a - log_b).max()}")
+        t_export = time.perf_counter() - t0
+        del loaded, sd_a, sd_b
+    finally:
+        (trainer_mod.load_video, reader.load_video, trainer_mod.sample_subsets,
+         trainer_mod.selector_update_step) = saved
+        vars(model).pop("generate", None)
+        shutil.rmtree(work, ignore_errors=True)
+    timed_steps = steps[1:]                 # step 1 ran under the profiler
+    mean = {k: float(np.mean([s[k] for s in timed_steps]))
+            for k in ("wall_s", "decode_composite_s", "features_s", "sampling_s",
+                      "rollouts_s", "update_s")}
+    total = {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]}
+    print(json.dumps({"phase": "4b", "summary": "train", "steps": len(steps),
+                      "num_generations": G, "grad_accum": cfg.grad_accum,
+                      "max_new_tokens": model.max_new_tokens,
+                      "decode": "seeded frames",
+                      "s_per_step_steps_2_4": mean["wall_s"],
+                      "stage_s_steps_2_4": mean,
+                      "rollouts_per_s_steps_2_4": G * len(timed_steps)
+                      / sum(s["rollouts_s"] for s in timed_steps),
+                      "T": [s["T"] for s in steps], "K": [s["K"] for s in steps],
+                      "launches": total, "kernels_step_1": ran,
+                      "grad_norm": [s["grad_norm"] for s in steps],
+                      "loss": [s["loss"] for s in steps],
+                      "peak_memory_gb": max(s["peak_memory_gb"] for s in steps),
+                      "rollout_stages_s": rollout_split,
+                      "update_parity": parity, "update_parity_s": t_parity,
+                      "profile_read_s": t_read, "checkpoint_resume_s": t_ckpt,
+                      "export_load_s": t_export,
+                      "phase_wall_s": time.perf_counter() - t_phase}))
+    return total
 
 
 def phase_bench(seed: int, rows: dict):
@@ -961,17 +1309,24 @@ def main(argv=None):
         return 1
     phase_card()
     s_main = answer_prompt_len(N_SELECT)
+    s_rollouts = {f"rollout_k{k}": answer_prompt_len(k, rollout_question())
+                  for k in sorted(set(TRAIN_K.values()), reverse=True)}
     vit_row = phase_kernel_vit(args.seed)
-    flash_row = phase_kernel_flash(args.seed, s_main)
+    flash_row = phase_kernel_flash(args.seed, s_main, s_rollouts)
     variant_rows = phase_kernel_variants(args.seed)
     phase_parity_scorer(args.seed)
     phase_parity_llava(args.seed)
-    n_score, idx, frames = phase_main_scoring(args.seed)
-    answer = phase_main_answer(args.seed, frames, idx, s_main)
+    n_score, idx, frames, scorer = phase_main_scoring(args.seed)
+    answer, model = phase_main_answer(args.seed, frames, idx, s_main)
+    train = phase_main_train(args.seed, scorer, model)
+    del scorer, model
+    torch.cuda.empty_cache()
     vit_row["shapes"]["clip"]["launches"] = n_score
     vit_row["shapes"]["siglip"]["launches"] = answer["vit_attention"]
-    vit_row["launches"] = n_score + answer["vit_attention"]
-    flash_row["launches"] = answer["flash_attention"]
+    vit_row["launches"] = n_score + answer["vit_attention"] + train["vit_attention"]
+    flash_row["launches"] = answer["flash_attention"] + train["flash_attention"]
+    for row in (vit_row, flash_row):
+        row["train"] = {"launches": train[row["name"]]}
     phase_bench(args.seed, variant_rows)
     print(json.dumps({"kernels": [vit_row, flash_row]
                       + [variant_rows[r[0]] for r in VARIANT_ROWS]}))

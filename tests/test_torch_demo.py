@@ -91,3 +91,48 @@ def test_stub_backbone_answers(assets, tmp_path, capsys):
                 "--contact-sheet", str(tmp_path / "s.jpg")])
     out = _lines(capsys.readouterr().out)
     assert out["answer"] == "A" and len(ast.literal_eval(out["selected"])) == 4
+
+
+@pytest.mark.parametrize("sample_num,factor", [(16, 1.0), (64, 3.0)])
+def test_demo_passes_sample_num_to_the_vicuna_rope_factor(
+        assets, tmp_path, monkeypatch, capsys, sample_num, factor):
+    """A vicuna checkpoint answered by the demo gets the rope factor that
+    covers ``--sample-num`` frames, as the JAX demo gives it: at 16 frames
+    ceil((16 * 12**2 + 1000) / 4096) = 1 (no scaling), at 64 frames 3.  The
+    tokenizer and the weights are stubbed on both sides; the stub model
+    answers with its template and factor."""
+    import json
+    import types
+
+    import transformers
+
+    _, _, video = assets
+    path = tmp_path / "llava-vicuna-7b"
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llava_llama", "vocab_size": 1000, "hidden_size": 64,
+        "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 4,
+        "mm_vision_tower": "openai/clip-vit-large-patch14-336"}))
+
+    class Echo:
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        def generate(self, frames, prompt):
+            return f"{self.conv_template} {self.cfg.lm.rope_scaling_factor}"
+
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        lambda *a, **k: types.SimpleNamespace(bos_token_id=1))
+    monkeypatch.setattr(jcommon, "_load_llava_dir", lambda p, cfg, **kw: Echo(cfg))
+    monkeypatch.setattr(tcommon, "_load_llava_dir", lambda p, cfg, **kw: Echo(cfg))
+    monkeypatch.setattr(jcommon, "enable_compilation_cache", lambda: None)
+    args = ["--video", video, "--question", "q", "--tiny", "--backbone",
+            "llava_video", "--backbone-path", str(path), "--sample-num",
+            str(sample_num), "--window-size", "4"]
+    jdemo.main(args + ["--contact-sheet", str(tmp_path / "jax.jpg")])
+    want = _lines(capsys.readouterr().out)["answer"]
+    tdemo.main(args + ["--contact-sheet", str(tmp_path / "port.jpg"),
+                       "--device", "cpu"])
+    got = _lines(capsys.readouterr().out)["answer"]
+    assert got == want == f"vicuna_v1 {factor}"

@@ -25,6 +25,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))
              or m == "tspo_tpu" or m.startswith("tspo_tpu."))
+assert {"tspo_tpu_torch.train.trainer", "tspo_tpu_torch.train.grpo",
+        "tspo_tpu_torch.train.checkpoint", "tspo_tpu_torch.train.rewards",
+        "tspo_tpu_torch.video.augment", "tspo_tpu_torch.cli.train"} <= set(names)
 print(len(names), bad)
 """
 
@@ -173,3 +176,69 @@ def test_flash_form_comparison_needs_a_card(monkeypatch, tmp_path):
         with pytest.raises(ValueError, match="distinct file name"):
             cmp.compare([tmp_path / "a" / "f.cu", tmp_path / "b" / "f.cu"],
                         kernel=kernel)
+
+
+def _tiny_trainer(tmp_path, device, **kw):
+    from tspo_tpu_torch.configs import TrainConfig
+    from tspo_tpu_torch.models.tspo_model import build_random_scorer
+    from tspo_tpu_torch.train.trainer import TSPOTrainer
+    scorer = build_random_scorer(torch.Generator().manual_seed(0), device=device,
+                                 clip_cfg=CLIPConfig.tiny(),
+                                 selector_cfg=SelectorConfig(dim=48, num_heads=4))
+    return TSPOTrainer(scorer=scorer, backbone=None, dataset=[],
+                       output_dir=str(tmp_path), **kw)
+
+
+def test_trainer_and_train_cli_default_to_cuda_and_raise_without_card(
+        monkeypatch, tmp_path):
+    from tspo_tpu_torch.cli import train as train_cli
+    from tspo_tpu_torch.cli.common import load_scorer
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _tiny_trainer(tmp_path, "cuda")
+    trainer = _tiny_trainer(tmp_path, "cpu")
+    assert trainer.device.type == "cpu" and trainer._generator.device.type == "cpu"
+    assert all(not p.requires_grad for p in trainer.scorer.clip.parameters())
+    assert all(p.requires_grad and p.dtype == torch.float32
+               for p in trainer.scorer.selector.parameters())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_scorer(None, tiny=True)
+    jsonl = tmp_path / "rows.jsonl"
+    jsonl.write_text('{"video": "v.mp4", "original_question": "q"}\n')
+    assert train_cli.build_parser().parse_args(
+        ["--video-folder", "."]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--jsonl-path", str(jsonl), "--video-folder",
+                        str(tmp_path), "--tiny", "--max-steps", "1"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh-data", "2"], ["--coordinator", "localhost:1234"],
+    ["--num-processes", "2"], ["--process-id", "0"],
+    ["--ckpt-backend", "orbax"], ["--tensorboard"], ["--quantize-backbone"],
+    ["--cross-batch-rollouts"],
+])
+def test_train_cli_unported_options_raise(tmp_path, flags):
+    from tspo_tpu_torch.cli import train as train_cli
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        train_cli.main(["--jsonl-path", str(tmp_path / "none.jsonl"),
+                        "--video-folder", str(tmp_path), "--tiny", "--device",
+                        "cpu", *flags])
+    with pytest.raises(SystemExit):       # the port has no qwen2_5_vl backbone
+        train_cli.build_parser().parse_args(["--video-folder", ".", "--backbone",
+                                             "qwen2_5_vl"])
+
+
+def test_trainer_mesh_orbax_and_multihost_raise(tmp_path):
+    from tspo_tpu_torch.configs import TrainConfig
+    from tspo_tpu_torch.train.checkpoint import OrbaxCheckpointer
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        _tiny_trainer(tmp_path, "cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        _tiny_trainer(tmp_path, "cpu", cfg=TrainConfig(ckpt_backend="orbax"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        OrbaxCheckpointer(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        _tiny_trainer(tmp_path, "cpu").train_step_batch_global([], None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        _tiny_trainer(tmp_path, "cpu", cfg=TrainConfig(cross_batch_rollouts=True))

@@ -214,3 +214,58 @@ def test_random_init_is_seeded_and_finite():
         assert torch.equal(pa, pb), na
         assert torch.isfinite(pa).all()
     assert a.net.lm.model.layers[0].input_layernorm.weight.eq(1).all()
+
+
+@pytest.mark.parametrize("name,tower,rope,frames", [
+    ("llava-vicuna-7b", "openai/clip-vit-large-patch14-336", None, 64),
+    ("LLaVA-Yi-34B", "openai/clip-vit-large-patch14-224", None, 64),
+    ("llava-v1.5-vicuna-13b", "google/siglip-so400m-patch14-384", None, 32),
+    ("llava-vicuna-7b-long", "openai/clip-vit-large-patch14-336",
+     {"type": "linear", "factor": 4.0}, 64),
+    ("LLaVA-Video-7B-Qwen2", "google/siglip-so400m-patch14-384", None, 64),
+])
+def test_load_backbone_picks_the_references_template_and_rope(
+        tmp_path, monkeypatch, name, tower, rope, frames):
+    """``load_backbone("llava_video", path)``: a path naming vicuna or yi
+    gets template vicuna_v1 and, without rope scaling in its config, the
+    linear factor covering the frames' tokens (ceil((64 * 12**2 + 1000) /
+    4096) = 3 for a non-224 tower), as in the JAX package; other paths get
+    qwen_1_5 and their config's factor.  The tokenizer and the weights are
+    stubbed on both sides."""
+    import types
+    from pathlib import Path
+
+    import transformers
+
+    from tspo_tpu.cli import common as jcommon
+    from tspo_tpu_torch.cli import common as tcommon
+    # a relative path: only the checkpoint's own name is matched, wherever
+    # the test's temporary directory lies
+    monkeypatch.chdir(tmp_path)
+    path = Path(name)
+    path.mkdir()
+    family = "qwen2" if "Qwen" in name else "llama"
+    hf = {"model_type": f"llava_{family}", "vocab_size": 1000, "hidden_size": 64,
+          "intermediate_size": 128, "num_hidden_layers": 2,
+          "num_attention_heads": 4, "mm_vision_tower": tower}
+    if rope:
+        hf["rope_scaling"] = rope
+    (path / "config.json").write_text(__import__("json").dumps(hf))
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        lambda *a, **k: types.SimpleNamespace(bos_token_id=1))
+    monkeypatch.setattr(jcommon, "_load_llava_dir",
+                        lambda p, cfg, **kw: types.SimpleNamespace(cfg=cfg))
+    monkeypatch.setattr(tcommon, "_load_llava_dir",
+                        lambda p, cfg, **kw: types.SimpleNamespace(cfg=cfg))
+    want = jcommon.load_backbone("llava_video", str(path), max_frames_num=frames)
+    got = tcommon.load_backbone("llava_video", str(path), max_frames_num=frames,
+                                device="cpu")
+    assert got.conv_template == want.conv_template
+    assert got.cfg.lm.rope_scaling_factor == want.cfg.lm.rope_scaling_factor
+    expect = {"llava-vicuna-7b": ("vicuna_v1", 3.0), "LLaVA-Yi-34B": ("vicuna_v1", 2.0),
+              "llava-v1.5-vicuna-13b": ("vicuna_v1", 2.0),
+              "llava-vicuna-7b-long": ("vicuna_v1", 4.0),
+              "LLaVA-Video-7B-Qwen2": ("qwen_1_5", 1.0)}[name]
+    assert (got.conv_template, got.cfg.lm.rope_scaling_factor) == expect
+    assert tconv.vicuna_rope_overrides(frames, 2, "224" in tower) == \
+        jconv.vicuna_rope_overrides(frames, 2, "224" in tower)

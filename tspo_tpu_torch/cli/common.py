@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -131,11 +132,17 @@ def stub_qwen_tokenizer(vocab: int = 151643):
 
 
 def load_backbone(kind: str, model_path: str | None = None, *, device="cuda",
-                  dtype=None, conv_template: str | None = None):
+                  dtype=None, conv_template: str | None = None,
+                  max_frames_num: int = 64):
     """Backbone for answering: ``"stub"`` (answers "A", for tests) or
     ``"llava_video"`` from a LLaVA-Video-Qwen2 checkpoint directory
     (safetensors or pytorch_model*.bin in the llava_qwen layout, config.json,
-    and an HF tokenizer), on ``device`` in ``dtype`` (default bf16)."""
+    and an HF tokenizer), on ``device`` in ``dtype`` (default bf16).
+
+    A path naming "vicuna" or "yi" is an old vicuna/yi checkpoint, as in the
+    reference adapter (llava_vid_tspo.py:94, 159-174): template ``vicuna_v1``
+    unless given, and, when its config has no rope scaling, the linear
+    factor that covers ``max_frames_num`` frames of pooled grid tokens."""
     if kind == "stub":
         class Stub:
             def generate(self, frames, prompt):
@@ -146,13 +153,24 @@ def load_backbone(kind: str, model_path: str | None = None, *, device="cuda",
                          "'llava_video')")
     from transformers import AutoTokenizer
 
+    from ..models.conversation import vicuna_rope_overrides
     from ..models.llava_video import LLaVAVideoConfig
     tok = AutoTokenizer.from_pretrained(model_path)
     cfg_path = os.path.join(model_path, "config.json")
-    cfg = LLaVAVideoConfig()
+    hf, cfg = {}, LLaVAVideoConfig()
     if os.path.exists(cfg_path):
         with open(cfg_path) as f:
-            cfg = LLaVAVideoConfig.from_hf_config(json.load(f))
+            hf = json.load(f)
+        cfg = LLaVAVideoConfig.from_hf_config(hf)
+    if "vicuna" in str(model_path).lower() or "yi" in str(model_path).lower():
+        conv_template = conv_template or "vicuna_v1"
+        if cfg.lm.rope_scaling_factor == 1.0:
+            over = vicuna_rope_overrides(
+                max_frames_num, cfg.pool_stride,
+                vision_224="224" in str(hf.get("mm_vision_tower", "")))
+            if over:
+                cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+                    cfg.lm, rope_scaling_factor=over["rope_scaling"]["factor"]))
     model = _load_llava_dir(model_path, cfg, device=device,
                             dtype=dtype or torch.bfloat16)
     model.encode = lambda s: tok(s).input_ids
@@ -177,3 +195,8 @@ def _load_llava_dir(path: str, cfg, *, device, dtype):
             sd.update(torch.load(fname, map_location="cpu", weights_only=True))
     return LLaVAVideoModel.from_torch_checkpoint(sd, cfg, dtype=dtype,
                                                  device=device)
+
+
+def load_jsonl(path: str) -> list:
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]

@@ -81,7 +81,8 @@ def main(argv=None):
     if args.backbone:
         backbone = load_backbone(args.backbone, args.backbone_path,
                                  device=args.device,
-                                 conv_template=args.conv_template)
+                                 conv_template=args.conv_template,
+                                 max_frames_num=args.sample_num)
         answer = backbone.generate(selected, args.question)
         print(f"answer: {answer}")
 

@@ -4,6 +4,7 @@ from .core import (
     CLIPVisionConfig,
     PrecomputeConfig,
     SelectorConfig,
+    TrainConfig,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "CLIPVisionConfig",
     "CLIPConfig",
     "PrecomputeConfig",
+    "TrainConfig",
 ]

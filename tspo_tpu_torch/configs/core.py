@@ -1,8 +1,9 @@
 """Typed configs of the phase-1 scoring slice, as frozen dataclasses.
 
 Copies of ``tspo_tpu/configs/core.py``'s ``SelectorConfig``, ``CLIPTextConfig``,
-``CLIPVisionConfig``, ``CLIPConfig`` and ``PrecomputeConfig``, with the same
-fields and defaults, so a checkpoint's geometry reads the same on both sides.
+``CLIPVisionConfig``, ``CLIPConfig``, ``TrainConfig`` and ``PrecomputeConfig``,
+with the same fields and defaults, so a checkpoint's geometry and a training
+run's settings read the same on both sides.
 """
 
 from __future__ import annotations
@@ -76,6 +77,38 @@ class CLIPConfig:
             vision=CLIPVisionConfig(width=96, layers=2, heads=4, patch_size=8,
                                     image_size=32, projection_dim=48),
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """GRPO training loop (reference train_deepspeed.sh:14-39, tspo_trainer.py)."""
+
+    num_generations: int = 8           # G (train_deepspeed.sh --num_generations 8)
+    training_sample_len: int = 16      # frames selected per generation ("specific")
+    window_size: int = 12
+    score_tau: float = 0.025           # annealed linearly to tau_final
+    score_tau_final: float = 0.01      # (tspo_trainer.py:496)
+    learning_rate: float = 5e-4
+    max_candidate_frames: int = 128    # 1-fps decode cap in training (tspo_trainer.py:457)
+    needle_wrong_clips: int = 12       # distractor clips (tspo_trainer.py:471)
+    needle_clip_len: int = 50          # frames per clip (tspo_trainer.py:465)
+    max_completion_length: int = 256   # backbone generate cap (tspo_trainer.py:533)
+    adv_eps: float = 1e-4              # advantage std eps (tspo_trainer.py:592)
+    max_steps: int = 1000
+    # when set, the planned run length is ceil(epochs * len(dataset)) like
+    # the reference HF Trainer (--num_train_epochs 1, train_deepspeed.sh:38)
+    # and tau anneals over exactly that span; max_steps then only caps it
+    num_train_epochs: float | None = None
+    # batch ALL B x G rollouts of a train_step_batch into ONE ragged-prompt
+    # decode (backbone.generate_batch_multi, not ported: True raises)
+    cross_batch_rollouts: bool = False
+    seed: int = 0
+    frame_bucket: int = 128            # padded candidate-frame bucket
+    grad_accum: int = 2                # per-rank accumulation (train_deepspeed.sh)
+    log_every: int = 1
+    save_every: int = 100
+    save_total_limit: int = 8
+    ckpt_backend: str = "npz"          # "npz"; "orbax" is the JAX package's only
 
 
 @dataclass(frozen=True)

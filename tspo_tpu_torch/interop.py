@@ -7,11 +7,14 @@ linear weights as [out, in].  The functions here convert between the two as
 numpy, with no JAX import, so a JAX tree converted to numpy loads here and
 the port's ``save`` writes the JAX package's ``tspo_params.npz`` layout.
 The LLaVA-Video backbone crosses as a llava_qwen-layout state dict, the
-format both packages' ``from_torch_checkpoint`` read.
+format both packages' ``from_torch_checkpoint`` read.  The trainer's AdamW
+state crosses as optax's flat leaf list (``adamw_state_from_optax`` and its
+inverse), so a run checkpointed by either package resumes in the other.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .configs import CLIPConfig, SelectorConfig
@@ -131,6 +134,72 @@ def selector_tree_from_state_dict(sd: dict) -> dict:
         out[grp][name] = {"kernel": t2n(sd[f"{key}.weight"]).T,
                           "bias": t2n(sd[f"{key}.bias"])}
     return out
+
+
+def _selector_leaf_names() -> list:
+    """(torch parameter name, is a kernel) of each selector tree leaf, in
+    the order ``jax.tree_util`` flattens the tree: sorted keys."""
+    by_tree = {tree_key: key for key, tree_key in SELECTOR_KEYS.items()}
+    return [(f"{by_tree[(grp, name)]}.{'weight' if leaf == 'kernel' else 'bias'}",
+             leaf == "kernel")
+            for grp, name in sorted(by_tree) for leaf in ("bias", "kernel")]
+
+
+def adamw_state_from_optax(opt_leaves, selector) -> dict:
+    """The JAX trainer's optax state (``load_train_state``'s flat leaves) ->
+    the port optimizer's state (``train.grpo.optimizer_state`` layout).
+
+    ``optax.adamw`` flattens to [count, mu..., nu...] (25 leaves for the
+    selector); inside ``optax.MultiSteps`` (``grad_accum > 1``) to
+    [mini_step, gradient_step, count, mu..., nu..., acc_grads...] (39).
+    count -> ``step``, mu -> ``exp_avg``, nu -> ``exp_avg_sq``; kernels
+    [in, out] become weights [out, in]."""
+    names = _selector_leaf_names()
+    n = len(names)
+    shapes = dict((k, tuple(p.shape)) for k, p in selector.named_parameters())
+    leaves = [np.asarray(x) for x in opt_leaves]
+    if len(leaves) == 1 + 2 * n:
+        mini_step, adam, acc = 0, leaves, None
+    elif len(leaves) == 3 + 3 * n:
+        mini_step, adam, acc = int(leaves[0]), leaves[2:3 + 2 * n], leaves[3 + 2 * n:]
+    else:
+        raise ValueError(f"{len(leaves)} optimizer leaves: not optax.adamw "
+                         f"({1 + 2 * n}) or MultiSteps of it ({3 + 3 * n})")
+
+    def by_name(xs):
+        out = {}
+        for (name, kernel), x in zip(names, xs):
+            x = np.asarray(x, np.float32)
+            out[name] = np.ascontiguousarray(x.T if kernel else x)
+            if out[name].shape != shapes[name]:
+                raise ValueError(f"{name}: optimizer leaf {x.shape} for a "
+                                 f"parameter of {shapes[name]}")
+        return out
+
+    zeros = [np.zeros(shapes[name][::-1] if kernel else shapes[name], np.float32)
+             for name, kernel in names]
+    return {"step": int(adam[0]), "mini_step": mini_step,
+            "exp_avg": by_name(adam[1:1 + n]),
+            "exp_avg_sq": by_name(adam[1 + n:1 + 2 * n]),
+            "acc_grads": by_name(zeros if acc is None else acc)}
+
+
+def optax_leaves_from_adamw(state: dict, grad_accum: int) -> list:
+    """Inverse of :func:`adamw_state_from_optax`: the flat leaves the JAX
+    package's ``restore_opt_state`` rebuilds its optax state from, for an
+    optimizer made with ``grad_accum``."""
+    names = _selector_leaf_names()
+
+    def leaves(group):
+        return [np.ascontiguousarray(state[group][name].T if kernel
+                                     else state[group][name]).astype(np.float32)
+                for name, kernel in names]
+
+    count = np.int32(state["step"])
+    adam = [count] + leaves("exp_avg") + leaves("exp_avg_sq")
+    if grad_accum <= 1:
+        return adam
+    return [np.int32(state["mini_step"]), count] + adam + leaves("acc_grads")
 
 
 def scorer_from_numpy(clip_tree: dict, selector_tree: dict,

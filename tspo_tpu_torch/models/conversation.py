@@ -1,10 +1,10 @@
 """Conversation prompt templates for the LLaVA backbone family.
 
 The port's own copy of ``tspo_tpu/models/conversation.py`` (jax-free there
-too; the port imports nothing of the JAX package): the templates and
-``build_prompt``, rendering the same prompts as the JAX package.  The
-multi-round prompt and the vicuna rope helper come with the features that
-use them (ROADMAP.md).
+too; the port imports nothing of the JAX package): the templates,
+``build_prompt`` and ``vicuna_rope_overrides``, rendering the same prompts
+and rope scaling as the JAX package.  The multi-round prompt comes with the
+feature that uses it (ROADMAP.md).
 
 Rebuilds the *active* slice of the reference's ``llava/conversation.py``
 (the Conversation dataclass + get_prompt separator styles, :25-160, and the
@@ -181,3 +181,21 @@ def build_prompt(question: str, template: str = "qwen_1_5",
     q = (DEFAULT_IMAGE_TOKEN + "\n" + question) if add_image_token \
         else question
     return get_template(template).render(q, assistant)
+
+
+def vicuna_rope_overrides(max_frames_num: int,
+                          mm_spatial_pool_stride: int = 2,
+                          vision_224: bool = False) -> dict:
+    """Long-context linear rope scaling for vicuna/yi LLaVA checkpoints
+    (llava_vid_tspo.py:159-174): estimate the token budget (frames x pooled
+    grid tokens + ~1000 text), scale the 4096 context up to cover it.
+    Returns {} when no scaling is needed (factor < 2, like the reference)."""
+    import math
+    grid = 16 if vision_224 else 24
+    least = max_frames_num * (grid // mm_spatial_pool_stride) ** 2 + 1000
+    factor = math.ceil(least / 4096)
+    if factor < 2:
+        return {}
+    return {"rope_scaling": {"factor": float(factor), "type": "linear"},
+            "max_sequence_length": 4096 * factor,
+            "tokenizer_model_max_length": 4096 * factor}

@@ -61,17 +61,20 @@ from .selector import (
 _NEG = -1e30
 
 
-def _flatten(tree: dict, prefix: str, out: dict):
+def flatten_tree(tree: dict, prefix: str, out: dict):
+    """Nested dict of arrays -> ``out["<prefix>/<key>/..."]`` as fp32 numpy:
+    the npz key layout of both packages' checkpoints."""
     for key in sorted(tree):
         val = tree[key]
         name = f"{prefix}/{key}"
         if isinstance(val, dict):
-            _flatten(val, name, out)
+            flatten_tree(val, name, out)
         else:
             out[name] = np.asarray(val, np.float32)
 
 
-def _unflatten(data, prefix: str) -> dict:
+def unflatten_tree(data, prefix: str) -> dict:
+    """Inverse of :func:`flatten_tree` over the keys of an opened npz."""
     out: dict = {}
     for key in data.files:
         if not key.startswith(prefix + "/"):
@@ -89,9 +92,10 @@ class TSPOScorer:
 
     ``tokenize``: callable str -> (input_ids [1, L], attention_mask [1, L]).
     ``batch_frames`` is the CLIP chunk size (device batch).  The selector is
-    kept in fp32 whatever ``dtype``.  ``device`` defaults to ``"cuda"`` and
-    raises when no card is present; pass ``device="cpu"`` for the CPU, where
-    the attention takes its plain PyTorch version.
+    kept in fp32 whatever ``dtype``, and is the only part with gradients.
+    ``device`` defaults to ``"cuda"`` and raises when no card is present;
+    pass ``device="cpu"`` for the CPU, where the attention takes its plain
+    PyTorch version.
     """
 
     def __init__(self, clip: CLIPModel, selector: MultiModalAlign,
@@ -109,7 +113,8 @@ class TSPOScorer:
         self.dtype = dtype
         self.frame_buckets = tuple(frame_buckets)
         self.preprocess = preprocess   # "device" resize, or "host" (cv2)
-        self.clip = clip.to(device=self.device, dtype=dtype).eval()
+        # the CLIP towers are frozen; the selector (fp32) is what GRPO trains
+        self.clip = clip.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         selector.cfg = selector_cfg
         self.selector = selector.to(device=self.device, dtype=torch.float32).eval()
 
@@ -300,9 +305,9 @@ class TSPOScorer:
         flattened fp32 trees + config json."""
         os.makedirs(directory, exist_ok=True)
         flat: dict = {}
-        _flatten(clip_tree_from_hf_state_dict(self.clip.state_dict(), self.clip_cfg),
+        flatten_tree(clip_tree_from_hf_state_dict(self.clip.state_dict(), self.clip_cfg),
                  "clip", flat)
-        _flatten(selector_tree_from_state_dict(self.selector.state_dict()),
+        flatten_tree(selector_tree_from_state_dict(self.selector.state_dict()),
                  "selector", flat)
         np.savez(os.path.join(directory, "tspo_params.npz"), **flat)
         with open(os.path.join(directory, "config.json"), "w") as f:
@@ -338,8 +343,8 @@ class TSPOScorer:
             if saved:
                 selector_cfg = dataclasses.replace(selector_cfg, **saved)
         with np.load(os.path.join(directory, "tspo_params.npz")) as data:
-            clip_tree = _unflatten(data, "clip")
-            sel_tree = _unflatten(data, "selector")
+            clip_tree = unflatten_tree(data, "clip")
+            sel_tree = unflatten_tree(data, "selector")
         return cls.from_state_dicts(
             hf_state_dict_from_clip_tree(clip_tree, clip_cfg),
             selector_state_dict_from_tree(sel_tree), clip_cfg=clip_cfg,

@@ -8,6 +8,7 @@ from .selection import (
     aks_select,
     bin_max_select,
     generate_uniform_integers,
+    gumbel_topk,
     topk_select,
     uniform_sample_indices,
 )
@@ -21,6 +22,7 @@ __all__ = [
     "topk_select",
     "bin_max_select",
     "aks_select",
+    "gumbel_topk",
     "uniform_sample_indices",
     "generate_uniform_integers",
 ]

@@ -1,9 +1,12 @@
-"""Frame-selection ops: top-k, bin-max, AKS, uniform helpers.
+"""Frame-selection ops: top-k, bin-max, AKS, Gumbel straight-through top-k,
+uniform helpers.
 
 Reference behaviour being matched:
   - topk:    ``llava_qwen.py:154-157`` / ``temporal_agent.py:191-192``
   - bin-max: ``llava_qwen.py:159-176`` (uniform proposal bins, argmax per bin)
   - AKS:     ``model/utils.py:83-153`` (recursive mean/std split; host-side)
+  - gumbel straight-through top-k: ``model/utils.py:69-80`` (stochastic
+    selection, *noise-free* log-probs)
   - uniform: ``model/utils.py:53-67``
 
 The tensor ops take a padded length with a ``valid`` mask; invalid slots
@@ -92,6 +95,57 @@ def bin_max_select(scores: torch.Tensor, k: int, valid: torch.Tensor | None = No
                           torch.full_like(masked[None, :], _NEG))
     sel = torch.argmax(per_bin, dim=1).to(torch.int32)             # first-max ties
     return torch.sort(sel).values, torch.tensor(k, dtype=torch.int32)
+
+
+def gumbel_topk(logits: torch.Tensor, k: int, valid: torch.Tensor | None = None,
+                tau: float = 1.0, k_len=None, *,
+                generator: torch.Generator | None = None, noise=None):
+    """Gumbel-softmax straight-through top-k frame sampling.
+
+    Matches reference ``model/utils.py:69-80`` and the JAX package's
+    ``gumbel_topk``:
+      selection   ~ top-k of softmax((logits + Gumbel)/tau)   (stochastic)
+      probs       = straight-through one-hot (grads flow through the softmax)
+      log_probs   = log_softmax(logits)                        (noise-free)
+
+    Returns (indices[k] ascending, st_probs[T], log_probs[T]).
+
+    The Gumbel noise [T] is ``noise`` when given (the JAX package's draw,
+    passed in for parity: the two RNGs differ), else -log(-log(U)) with U
+    drawn from ``generator`` on the logits' device.  The top k is taken from
+    a stable descending sort of the softmax: with a small ``score_tau`` many
+    entries underflow to exactly 0, and the tie goes to the lower index, as
+    in ``jax.lax.top_k``.
+
+    ``k_len`` (<= k) selects only the top ``k_len`` frames: the first k_len
+    entries are the chosen indices ascending, the tail is 0-padded (mixed
+    "general"/"specific" batches with per-sample subset sizes).
+    """
+    T = logits.shape[0]
+    dev = logits.device
+    valid = _valid_or_all(logits, valid)
+    neg = torch.full_like(logits, _NEG)
+    masked = torch.where(valid, logits, neg)
+    if noise is None:
+        u = torch.rand(T, generator=generator, device=dev, dtype=logits.dtype)
+        g = -torch.log(-torch.log(u.clamp_min(torch.finfo(logits.dtype).tiny)))
+    else:
+        g = torch.as_tensor(noise, dtype=logits.dtype, device=dev)
+    y = torch.softmax(torch.where(valid, (masked + g) / tau, neg), dim=-1)
+    idxv = torch.sort(y.detach(), descending=True, stable=True).indices[:k]
+    one_hot = torch.zeros_like(y)
+    if k_len is None:
+        idx = torch.sort(idxv).values.to(torch.int32)
+        one_hot[idxv] = 1.0
+    else:
+        keep = torch.arange(k, device=dev) < torch.as_tensor(k_len, device=dev)
+        # sentinels >= T sort to the tail; kept indices end up ascending first
+        idx = torch.sort(torch.where(keep, idxv, T + torch.arange(k, device=dev))).values
+        idx = torch.where(keep, idx, 0).to(torch.int32)
+        one_hot[idxv] = keep.to(y.dtype)
+    st_probs = one_hot - y.detach() + y
+    log_probs = torch.log_softmax(masked, dim=-1)
+    return idx, st_probs, log_probs
 
 
 # ---------------------------------------------------------------------------
