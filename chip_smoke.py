@@ -22,7 +22,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    kernel on the same tensors is timed as a reference point.
    ``flash_attention`` (``FLASH_CASES``) at the answer path's prefill shape
    (the prompt length of phase 4), at each training rollout's prefill (16
-   and 8 frames), ragged B=2, a ``q_offset`` suffix, a
+   and 8 frames) alone and as one batched prefill of G=8 equal rows, at the
+   harness's batched prefill of 4 ragged rows (phase 4c's first batch,
+   12160-12288 tokens, ends on a 128-key tile edge and mid-tile; its
+   library time is one masked SDPA call), ragged B=2, a ``q_offset`` suffix, a
    sliding ``window``, the wgmma kernel's tile edges (Sq and Sk off a
    multiple of 128, lengths mid-tile and on a tile edge, ``q_offset`` off a
    multiple of 128, a window across tile edges, k/v as a slice of a longer
@@ -48,7 +51,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    answers on 3 frames of 480x640 (a prompt of >= 512 tokens, so the flash
    path runs) on the CPU and on the card: first-step logits within 1e-3
    relative, and 8 greedy tokens equal wherever the top-2 logit margin
-   exceeds the measured logit error.
+   exceeds the measured logit error.  The same for two ragged rows in one
+   batched decode (the calls ``generate_batch_multi`` makes: one flash
+   prefill), and ``loglikelihood`` of a continuation within 1e-3 relative.
 3. Scoring main path: the full-width scorer in bf16 with ``batch_frames=256``
    scores a 300-frame video (bucket 512) with
    ``score_video_fused(sample_num=64)`` (its warm-up call under
@@ -72,17 +77,29 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    specific, specific (``seeded_decoder`` stands in for the video decoder:
    seeded 480x640 frames; a specific row is a needle composite of 1-4 true
    and 12 distractor clips of 50 frames), each rollout answering in at most
-   8 tokens.  Each step launches exactly 23 ceil(T/256) + 8 x 26 ceil(K/64)
-   ``vit_attention`` and 8 x 28 ``flash_attention`` kernels (step 1 under
+   8 tokens; a step's 8 answers are one ``generate_batch`` call.  Each step
+   launches exactly 23 ceil(T/256) + 8 x 26 ceil(K/64) ``vit_attention`` and
+   28 ``flash_attention`` kernels (one batched prefill; step 1 under
    ``torch.profiler``: all on the wgmma kernels); loss and grad norm finite,
    grad norm > 0 on the specific steps; the selector unchanged after steps 1
    and 3 and changed after 2 and 4, CLIP unchanged; step 1's update repeated
    on a copy of the selector on the card and on the CPU at ``grad_accum`` 1
    (``_update_parity``); a checkpoint resumed by a fresh trainer, and the
-   merged export read back by ``TSPOScorer.load`` with equal logits.  Stage
-   times per step (decode + composite, features, sampling, rollouts,
-   update), rollouts/s, peak memory, and one rollout split as phase 4
-   splits an answer.
+   merged export read back by ``TSPOScorer.load`` with equal logits; the
+   last step's batched rollouts against one ``generate`` each under the
+   margin rule (``batch_vs_single``); one ``cross_batch_rollouts=True`` step
+   of two rows (specific, general): one ``generate_batch_multi`` call of 16
+   ragged rows and exactly 28 flash launches.  Stage times per step (decode
+   + composite, features, sampling, rollouts, update), rollouts/s, peak
+   memory, and the batched rollout call split as phase 4 splits an answer.
+4c. Eval harness main path: ``eval.harness.evaluate_task`` over 8 VideoMME
+   docs on 4 seeded videos of 300 frames (``seeded_frames`` stands in for
+   the decoder), each doc's ``frame_idx`` the 64 frames phase 3's scorer
+   picks for it, answered by phase 4's model in at most 16 tokens at
+   ``batch_size`` 1 and 4: responses equal, or parted at a near-tie that
+   ``batch_vs_single`` finds again; then 2 ``EgoSchema-ppl`` docs of 5
+   choices through ``loglikelihood``.  Exact launches of each run, docs/s,
+   peak memory.
    Every kernel count is set to 0 just before and read just after each
    path of phases 3 to 5.
 5. Variant bench main path: ``tools/bench_vit_attention_variants.run`` over
@@ -93,9 +110,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    >= 0.9998 at B=8).
 6. One JSON line listing every ported kernel with its launches, error and
    times (``vit_attention``'s row at the CLIP shape, with every main-path
-   shape under ``shapes``; ``flash_attention``'s rollout prefills under
-   ``shapes``; the training launches of each under ``train``); then, as
-   the last line, ``{"ok": true, "device": {...}}``.
+   shape under ``shapes``; ``flash_attention``'s rollout and batched
+   prefills under ``shapes``; the training and harness launches of each
+   under ``train`` and ``evaluate``); then, as the last line, ``{"ok":
+   true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
 any check fails.  Imports nothing of JAX or of the JAX package.
@@ -130,6 +148,13 @@ TRAIN_QUESTION = ("<image>\nWhat is the person holding?\nA. a cup\nB. a phone\n"
                   "the correct answer.")
 TRAIN_TYPES = ("specific", "general", "specific", "specific")
 TRAIN_K = {"specific": 16, "general": 8}
+# phase 4c: VideoMME docs over seeded videos, answered at --batch 1 and 4;
+# each question is padded so its prompt ends this many tokens past a
+# 128-key tile edge E (the first batch: two mid-tile, two on an edge)
+HARNESS_VIDEOS = 4
+HARNESS_BATCH = 4
+HARNESS_TAILS = (61, 0, 128, 93, 5, 40, 77, 100)
+HARNESS_OPTIONS = ["A. a cup", "B. a phone", "C. a book", "D. nothing"]
 
 
 def check(cond: bool, msg: str):
@@ -204,6 +229,110 @@ def rollout_question() -> str:
     from tspo_tpu_torch.train.rewards import clean_question
     from tspo_tpu_torch.train.trainer import ANSWER_TRAILER
     return clean_question(TRAIN_QUESTION) + ANSWER_TRAILER
+
+
+def harness_docs() -> tuple:
+    """(the VideoMME docs of phase 4c without their ``frame_idx``, each
+    doc's prompt tokens at ``N_SELECT`` frames): questions padded so that
+    the prompts end ``HARNESS_TAILS`` tokens past a tile edge."""
+    from tspo_tpu_torch.eval.tasks import get_task
+    task = get_task("VideoMME")
+
+    def doc(i, question):
+        return {"question_id": f"q{i}", "question": question,
+                "options": HARNESS_OPTIONS, "answer": "ABCD"[i % 4],
+                "duration": "long", "domain": "d", "sub_category": "s",
+                "task_type": "t", "videoID": f"h{i % HARNESS_VIDEOS}.mp4"}
+
+    def length(d):
+        return answer_prompt_len(N_SELECT, task.doc_to_text(d))
+    base = length(doc(0, ""))
+    edge = 128 * -(-(base + 8) // 128)
+    filler = "What is the person holding in this part of the video? " * 8
+    docs = [doc(i, filler[:edge + tail - base]) for i, tail in enumerate(HARNESS_TAILS)]
+    lens = [length(d) for d in docs]
+    check(lens == [edge + t for t in HARNESS_TAILS],
+          f"harness prompt lengths {lens}, want {edge} + {HARNESS_TAILS}")
+    return docs, lens
+
+
+def seeded_frames(seed: int, path: str, indices, h: int = 480, w: int = 640):
+    """Frames ``indices`` of a seeded video named ``path``, each frame made
+    from its own generator: the same frame for the same (seed, path, index)
+    whatever else is asked for."""
+    import zlib
+
+    import numpy as np
+    import torch
+    base = seed * 7919 + zlib.crc32(path.encode())
+    return np.concatenate([smooth_frames(torch.Generator().manual_seed(base + 104729 * int(i)),
+                                         1, h, w) for i in indices])
+
+
+def margin_rule(tokens_a, logits_a, tokens_b, logits_b, eos: int, tag: str) -> dict:
+    """Greedy tokens of one row from two runs (``a`` the reference), with
+    each step's [V] logits: equal up to the first EOS of ``a``, or, where
+    they part, the reference's top-2 margin at that step within twice the
+    logit difference there (a near-tie that rounding may flip).  Returns
+    what was compared."""
+    import torch
+    n = min(len(tokens_a), len(logits_a), len(logits_b))
+    compared, max_err = 0, 0.0
+    for i in range(n):
+        err = (logits_a[i].float() - logits_b[i].float()).abs().max().item()
+        max_err = max(max_err, err)
+        compared += 1
+        if tokens_a[i] != tokens_b[i]:
+            top2 = torch.topk(logits_a[i].float(), 2).values
+            margin = (top2[0] - top2[1]).item()
+            check(margin <= 2 * err,
+                  f"{tag}: greedy token {i} differs ({tokens_b[i]} vs "
+                  f"{tokens_a[i]}) with margin {margin} above twice the logit "
+                  f"difference {err}")
+            return {"tokens_compared": compared, "parted_at": i,
+                    "margin": margin, "logit_max_abs_diff": max_err}
+        if tokens_a[i] == eos:
+            break
+    return {"tokens_compared": compared, "parted_at": None,
+            "logit_max_abs_diff": max_err}
+
+
+def batch_vs_single(model, frames_list, questions, n_new: int) -> dict:
+    """One batched greedy decode (the calls ``generate_batch_multi`` makes)
+    against one decode a row (the calls ``generate`` makes), each row under
+    :func:`margin_rule`; returns the rows and tokens compared, and the rows
+    that parted at a near-tie."""
+    import torch
+    from tspo_tpu_torch.models.qwen2 import KVCache, greedy_decode
+    cfg, dev = model.cfg, model.device
+    eos = cfg.lm.eos_token_id
+    embeds, valid, max_new = model._prepare_batch(frames_list, questions, n_new)
+    B, S = valid.shape
+    cache = KVCache.create(cfg.lm, B, min(cfg.max_context, S + max_new + 8),
+                           embeds.dtype, dev)
+    steps_b = []
+    toks_b, _ = greedy_decode(model.lm, embeds, valid, cache, max_new,
+                              step_logits=steps_b)
+    toks_b = toks_b.reshape(B, -1).tolist()
+    del embeds, cache
+    rows = []
+    for b in range(B):
+        e1, _, mn = model._prepare_generate(frames_list[b], questions[b], n_new, None)
+        cache = KVCache.create(cfg.lm, 1, min(cfg.max_context, e1.shape[1] + mn + 8),
+                               e1.dtype, dev)
+        steps_1 = []
+        toks_1, n1 = greedy_decode(model.lm, e1, torch.ones(1, e1.shape[1], dtype=torch.bool,
+                                                            device=dev),
+                                   cache, mn, step_logits=steps_1)
+        rows.append(margin_rule(toks_1[:n1].tolist(), [x[0] for x in steps_1],
+                                toks_b[b], [x[b] for x in steps_b], eos,
+                                f"batched row {b} vs its single decode"))
+        del e1, cache, steps_1
+    return {"rows": B, "prompt_tokens": valid.sum(1).tolist(),
+            "parted_at": [r["parted_at"] for r in rows],
+            "tokens_compared": sum(r["tokens_compared"] for r in rows),
+            "rows_parted_at_near_tie": sum(r["parted_at"] is not None for r in rows),
+            "logit_max_abs_diff": max(r["logit_max_abs_diff"] for r in rows)}
 
 
 def cuda_kernels_run(prof, kernels) -> dict:
@@ -469,11 +598,14 @@ def flash_inputs(gen, B, Sq, Sk, H, KV, hd, lens, dtype, source):
 
 
 @without_tf32
-def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict) -> dict:
+def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict,
+                       harness_lens) -> dict:
     """flash_attention against its plain version, at every case of
-    ``FLASH_CASES`` and at each training rollout's prefill
-    (``s_rollouts``: name -> prompt tokens); returns the main-path row,
-    with the rollout shapes under ``shapes``."""
+    ``FLASH_CASES``, at each training rollout's prefill (``s_rollouts``:
+    name -> prompt tokens) alone and as the batched prefill of G=8 equal
+    rows, and at the harness's batched prefill of ``HARNESS_BATCH`` ragged
+    rows (``harness_lens``); returns the main-path row, with the other
+    main-path shapes under ``shapes``."""
     import torch
     import torch.nn.functional as F
     from tspo_tpu_torch.ops import flash_attention as fa
@@ -496,6 +628,12 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict) -> dict:
                               "hd": hd, **fa.kernel_attributes(dtype, hd)}))
     rollout_cases = [(name, 1, sq, sq, 28, 4, 128, True, None, None, 0, "bf16", None)
                      for name, sq in s_rollouts.items()]
+    rollout_cases += [(name.replace("rollout_", "rollouts_batched_"), 8, sq, sq, 28, 4,
+                       128, True, None, None, 0, "bf16", None)
+                      for name, sq in s_rollouts.items()]
+    lens_h = tuple(harness_lens[:HARNESS_BATCH])
+    rollout_cases.append(("harness_batched", HARNESS_BATCH, max(lens_h), max(lens_h),
+                          28, 4, 128, True, lens_h, None, 0, "bf16", None))
     shapes = {}
     for (name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, tag,
          source) in FLASH_CASES + rollout_cases:
@@ -535,6 +673,21 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict) -> dict:
             views = [x.transpose(1, 2) for x in (q, k, v)]
             lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 *views, is_causal=causal, enable_gqa=True), 10)
+        elif name == "harness_batched":
+            # one SDPA call over the ragged rows: a boolean causal and
+            # key-prefix mask, on k/v repeated to the query heads outside
+            # the timed call (the memory-efficient kernel takes a mask; the
+            # math fallback would hold [B, H, S, S] scores)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            k_pos = torch.arange(Sk, device="cuda")
+            mask = ((k_pos[None, :] <= torch.arange(Sq, device="cuda")[:, None])[None]
+                    & (k_pos[None, None, :] < lengths[:, None, None]))[:, None]
+            views = [q.transpose(1, 2)] + [x.repeat_interleave(H // KV, dim=2)
+                                           .transpose(1, 2) for x in (k, v)]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    *views, attn_mask=mask), 10)
+            del views, mask
         es = q.element_size()
         nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * es
         flops = 4 * hd * H * int(n_keys.sum())
@@ -558,9 +711,9 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict) -> dict:
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": lib_ms}
-        if name in s_rollouts:
-            shapes[name] = {"Sq": Sq, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+        if name in s_rollouts or name.startswith(("rollouts_batched", "harness")):
+            shapes[name] = {"B": B, "Sq": Sq, "lengths": lens, "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v, k_ref, v_ref, out, ref
     torch.cuda.empty_cache()
@@ -777,7 +930,10 @@ def phase_parity_llava(seed: int):
     t_init = time.perf_counter() - t0
     frames = smooth_frames(torch.Generator().manual_seed(seed + 4), 3)
     n_new = 8
-    runs = {}
+    batch_frames = [frames, frames[:2]]
+    batch_questions = [QUESTION, "where does the scene change?"]
+    continuation = "a red cup"
+    runs, batched, ll = {}, {}, {}
     for dev in ("cpu", "cuda"):
         model.to(dev)
         reset_counts()
@@ -789,6 +945,19 @@ def phase_parity_llava(seed: int):
                                                              device=dev),
                                 cache, n_new, step_logits=steps)
         runs[dev] = (toks.cpu().tolist(), [s[0].cpu() for s in steps], read_counts())
+        # two ragged rows in one batched decode, then the teacher-forced
+        # log-probability of a continuation
+        reset_counts()
+        embeds, valid, mn = model._prepare_batch(batch_frames, batch_questions, n_new)
+        cache = KVCache.create(cfg.lm, len(batch_frames), embeds.shape[1] + mn + 8,
+                               torch.float32, dev)
+        steps = []
+        toks, _ = greedy_decode(model.lm, embeds, valid, cache, mn, step_logits=steps)
+        batched[dev] = (toks.cpu().tolist(), [s.cpu() for s in steps],
+                        valid.sum(1).tolist(), read_counts())
+        reset_counts()
+        ll[dev] = (model.loglikelihood(frames, QUESTION, continuation), read_counts())
+        del embeds, cache, steps
     (tc, lc, cc), (th, lh, ch) = runs["cuda"], runs["cpu"]
     check(cc == {"vit_attention": 2, "flash_attention": 2},
           f"parity run on the card launched {cc}, want 2 and 2")
@@ -814,6 +983,40 @@ def phase_parity_llava(seed: int):
                       "launches_card": cc}))
     check(S >= 512, f"parity prompt of {S} tokens does not reach the flash path")
     check(rel <= 1e-3, f"LLaVA first-step logits relative error {rel}")
+
+    (btc, blc, lens, bcc), (bth, blh, _, bch) = batched["cuda"], batched["cpu"]
+    eos = cfg.lm.eos_token_id
+    rows = [margin_rule(bth[b], [x[b] for x in blh], btc[b], [x[b] for x in blc], eos,
+                        f"batched parity row {b}") for b in range(len(lens))]
+    brel = ((blc[0] - blh[0]).abs().max() / blh[0].abs().max()).item()
+    (ll_c, greedy_c), llc = ll["cuda"]
+    (ll_h, greedy_h), llh = ll["cpu"]
+    ll_rel = abs(ll_c - ll_h) / abs(ll_h)
+    print(json.dumps({"phase": 2, "model": "llava_video_2+2_layers",
+                      "call": "generate_batch_multi", "rows": len(lens),
+                      "prompt_tokens": lens, "first_logits_max_rel": brel,
+                      "tokens_card": btc, "tokens_cpu": bth,
+                      "tokens_compared": sum(r["tokens_compared"] for r in rows),
+                      "rows_parted_at_near_tie": sum(r["parted_at"] is not None
+                                                     for r in rows),
+                      "launches_card": bcc}))
+    print(json.dumps({"phase": 2, "model": "llava_video_2+2_layers",
+                      "call": "loglikelihood", "continuation": continuation,
+                      "logprob_card": ll_c, "logprob_cpu": ll_h, "rel_err": ll_rel,
+                      "is_greedy_card": greedy_c, "is_greedy_cpu": greedy_h,
+                      "launches_card": llc}))
+    check(bcc == {"vit_attention": 2 * len(lens), "flash_attention": 2},
+          f"batched parity on the card launched {bcc}, want vit_attention "
+          f"{2 * len(lens)} (2 layers a row) and flash_attention 2 (one prefill)")
+    check(llc == {"vit_attention": 2, "flash_attention": 2},
+          f"loglikelihood on the card launched {llc}, want 2 and 2")
+    check(bch == llh == {"vit_attention": 0, "flash_attention": 0},
+          f"the CPU runs launched kernels: {bch}, {llh}")
+    check(max(lens) >= 512 and len(set(lens)) == len(lens),
+          f"batched parity rows {lens} are not ragged over the flash path")
+    check(brel <= 1e-3, f"batched first-step logits relative error {brel}")
+    check(ll_rel <= 1e-3, f"loglikelihood relative error {ll_rel} "
+          f"({ll_c} on the card, {ll_h} on the CPU)")
     del model
     torch.cuda.empty_cache()
 
@@ -1064,7 +1267,7 @@ def phase_main_train(seed: int, scorer, model) -> dict:
     from tspo_tpu_torch.ops import flash_attention as fa
     from tspo_tpu_torch.ops import vit_attention as va
     from tspo_tpu_torch.ops.masking import bucket_for
-    from tspo_tpu_torch.tools.profile_answer import timed_answer
+    from tspo_tpu_torch.tools.profile_answer import timed_batch_answer
     from tspo_tpu_torch.train import grpo
     from tspo_tpu_torch.train import trainer as trainer_mod
     from tspo_tpu_torch.video import reader
@@ -1104,7 +1307,7 @@ def phase_main_train(seed: int, scorer, model) -> dict:
     trainer_mod.load_video = reader.load_video = seeded_decoder(seed)
     trainer_mod.sample_subsets = timed("sampling", saved[2])
     trainer_mod.selector_update_step = timed("update", saved[3])
-    model.generate = timed("rollouts", model.generate)
+    model.generate_batch = timed("rollouts", model.generate_batch)
     try:
         trainer = trainer_mod.TSPOTrainer(
             scorer=scorer, backbone=model, dataset=rows, cfg=cfg,
@@ -1132,9 +1335,10 @@ def phase_main_train(seed: int, scorer, model) -> dict:
             trainer.step += 1
             T, K = seen["T"], int(m["ts_length"])
             check(K == TRAIN_K[row["type"]], f"step {i + 1}: K={K}")
+            # one batched prefill for the G rollouts: 28 flash launches
             want = {"vit_attention": 23 * -(-T // scorer.batch_frames)
                     + G * 26 * -(-K // model.batch_frames),
-                    "flash_attention": G * 28}
+                    "flash_attention": 28}
             check(launches == want, f"train step {i + 1} (T={T}, K={K}) launched "
                   f"{launches}, want {want}")
             if i == 0:
@@ -1176,13 +1380,18 @@ def phase_main_train(seed: int, scorer, model) -> dict:
                   for k, v in scorer.clip.state_dict().items()),
               "the CLIP parameters changed during training")
         del clip_before
-        # where a rollout's time goes: step 4's last rollout again, through
-        # the calls generate makes, three times
+        # where the rollouts' time goes: step 4's batched call again, through
+        # the calls generate_batch makes, three times; then its rows against
+        # one generate each, under the margin rule
         frames_r, question_r = seen["rollout"][:2]
-        split = [timed_answer(model, frames_r, question_r, model.max_new_tokens)[1]
-                 for _ in range(3)]
+        split = [timed_batch_answer(model, frames_r, [question_r] * G,
+                                    model.max_new_tokens)[1] for _ in range(3)]
         rollout_split = {k: float(np.median([r[k] for r in split]))
                          for k in split[0]}
+        t0 = time.perf_counter()
+        vs_single = batch_vs_single(model, frames_r, [question_r] * G,
+                                    model.max_new_tokens)
+        vs_single["s"] = time.perf_counter() - t0
 
         # checkpoint: a fresh trainer (same CLIP, another selector) resumes
         t0 = time.perf_counter()
@@ -1226,16 +1435,65 @@ def phase_main_train(seed: int, scorer, model) -> dict:
               f"exported scorer's logits differ by {np.abs(log_a - log_b).max()}")
         t_export = time.perf_counter() - t0
         del loaded, sd_a, sd_b
+
+        # a batched step of two rows (specific, general) with cross-batch
+        # rollouts: all 2 x G answers in one ragged generate_batch_multi call
+        cross = trainer_mod.TSPOTrainer(
+            scorer=scorer, backbone=model, dataset=rows,
+            cfg=dataclasses.replace(cfg, cross_batch_rollouts=True, grad_accum=1),
+            irrelevant_pool=pool, output_dir=str(work / "cross"))
+        multi, rows_seen = model.generate_batch_multi, []
+
+        def counted_multi(frames_list, questions, **kw):
+            rows_seen.append(len(frames_list))
+            return multi(frames_list, questions, **kw)
+        model.generate_batch_multi = timed("cross_rollouts", counted_multi)
+        pair = [rows[0], rows[1]]
+        Ts = []
+        feats = cross.features
+
+        def features_seen(video, problem):
+            out = feats(video, problem)
+            Ts.append(int(out[0].shape[0]))
+            return out
+        cross.features = features_seen
+        clock.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = cross.train_step_batch(pair)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        Ks = [TRAIN_K[r["type"]] for r in pair]
+        want = {"vit_attention": sum(23 * -(-T // scorer.batch_frames) for T in Ts)
+                + sum(G * 26 * -(-K // model.batch_frames) for K in Ks),
+                "flash_attention": 28}
+        check(rows_seen == [len(pair) * G], f"cross-batch rollouts made "
+              f"generate_batch_multi calls of {rows_seen} rows, want one of "
+              f"{len(pair) * G}")
+        check(launches == want, f"cross-batch step (T={Ts}, K={Ks}) launched "
+              f"{launches}, want {want}")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["batch"] == 2,
+              f"cross-batch step metrics {m}")
+        cross_step = {"rows": len(pair), "T": Ts, "K": Ks, "wall_s": wall,
+                      "rollouts_s": clock["cross_rollouts"],
+                      "rollouts_per_s": len(pair) * G / clock["cross_rollouts"],
+                      "launches": launches, "loss": m["loss"],
+                      "grad_norm": m["grad_norm"], "reward": m["reward"]}
+        print(json.dumps({"phase": "4b", "cross_batch_step": cross_step}))
+        del cross
     finally:
         (trainer_mod.load_video, reader.load_video, trainer_mod.sample_subsets,
          trainer_mod.selector_update_step) = saved
-        vars(model).pop("generate", None)
+        vars(model).pop("generate_batch", None)
+        vars(model).pop("generate_batch_multi", None)
         shutil.rmtree(work, ignore_errors=True)
     timed_steps = steps[1:]                 # step 1 ran under the profiler
     mean = {k: float(np.mean([s[k] for s in timed_steps]))
             for k in ("wall_s", "decode_composite_s", "features_s", "sampling_s",
                       "rollouts_s", "update_s")}
-    total = {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]}
+    total = {k: sum(s["launches"][k] for s in steps) + cross_step["launches"][k]
+             for k in steps[0]["launches"]}
     print(json.dumps({"phase": "4b", "summary": "train", "steps": len(steps),
                       "num_generations": G, "grad_accum": cfg.grad_accum,
                       "max_new_tokens": model.max_new_tokens,
@@ -1250,9 +1508,128 @@ def phase_main_train(seed: int, scorer, model) -> dict:
                       "loss": [s["loss"] for s in steps],
                       "peak_memory_gb": max(s["peak_memory_gb"] for s in steps),
                       "rollout_stages_s": rollout_split,
+                      "batched_vs_single_rollouts": vs_single,
+                      "cross_batch_step": cross_step,
                       "update_parity": parity, "update_parity_s": t_parity,
                       "profile_read_s": t_read, "checkpoint_resume_s": t_ckpt,
                       "export_load_s": t_export,
+                      "phase_wall_s": time.perf_counter() - t_phase}))
+    return total
+
+
+def phase_main_harness(seed: int, scorer, model) -> dict:
+    """The eval harness at full width: ``evaluate_task`` over the VideoMME
+    docs of :func:`harness_docs` on ``HARNESS_VIDEOS`` seeded videos of 300
+    frames, each doc's ``frame_idx`` the 64 frames phase 3's scorer picks
+    for its question, answered by phase 4's LLaVA-Video-7B-Qwen2 in at most
+    16 tokens at ``batch_size`` 1 and ``HARNESS_BATCH``; then 2
+    ``EgoSchema-ppl`` docs of 5 choices through ``loglikelihood``.  The
+    harness reads frames through ``load_video_indices``, which
+    :func:`seeded_frames` stands in for (the card's machine has no video
+    decoder).  Returns the launches of the three runs."""
+    import numpy as np
+    import torch
+    from tspo_tpu_torch.eval import harness
+    from tspo_tpu_torch.eval.tasks import clip_query_text, get_task
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    root, T, n_new = "seeded", 300, 16
+    docs, lens = harness_docs()
+    t0 = time.perf_counter()
+    for v in range(HARNESS_VIDEOS):
+        feats = scorer.encode_frame_features(
+            seeded_frames(seed, os.path.join(root, f"h{v}.mp4"), range(T)))
+        for d in docs[v::HARNESS_VIDEOS]:
+            idx, _ = scorer.score_features_fused(feats, clip_query_text(d),
+                                                 sample_num=N_SELECT)
+            d["frame_idx"] = [int(i) for i in idx]
+        del feats
+    t_score = time.perf_counter() - t0
+    ego = [{"video_idx": f"h{v}", "question": f"What does the person do with "
+            f"the object in clip {v}?", "answer": v,
+            "option": ["A. picks it up", "B. puts it down", "C. looks at it",
+                       "D. hands it over", "E. ignores it"],
+            "frame_idx": docs[v]["frame_idx"]} for v in range(2)]
+    model.max_new_tokens = n_new
+    saved = harness.load_video_indices
+    harness.load_video_indices = partial(seeded_frames, seed)
+    runs = {}
+    try:
+        for name, task, task_docs, bs in (
+                ("batch_1", "VideoMME", docs, 1),
+                (f"batch_{HARNESS_BATCH}", "VideoMME", docs, HARNESS_BATCH),
+                ("egoschema_ppl", "EgoSchema-ppl", ego, 1)):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = harness.evaluate_task(task, task_docs, model, video_root=root,
+                                        max_frames_num=N_SELECT, on_error="raise",
+                                        batch_size=bs)
+            sync()
+            wall = time.perf_counter() - t0
+            runs[name] = {"res": res, "wall_s": wall, "launches": read_counts(),
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        # the batched run's rows against one answer each, under the margin
+        # rule: the first batch always, a later one where a response differs
+        task = get_task("VideoMME")
+        one = [s["response"] for s in runs["batch_1"]["res"].samples]
+        many = [s["response"] for s in runs[f"batch_{HARNESS_BATCH}"]["res"].samples]
+        compared = []
+        for c in range(0, len(docs), HARNESS_BATCH):
+            chunk = docs[c:c + HARNESS_BATCH]
+            differs = [one[c + i] != many[c + i] for i in range(len(chunk))]
+            if c and not any(differs):
+                continue
+            frames = [harness.load_frames_by_index(task.resolve_video(d, root), d,
+                                                   N_SELECT)[0] for d in chunk]
+            t0 = time.perf_counter()
+            vs = batch_vs_single(model, frames, [task.doc_to_text(d) for d in chunk],
+                                 n_new)
+            vs["s"] = time.perf_counter() - t0
+            for i, d in enumerate(differs):
+                check(not d or vs["parted_at"][i] is not None,
+                      f"doc {c + i}: batched response {many[c + i]!r} differs from "
+                      f"the single one {one[c + i]!r}, but a rerun parts at no "
+                      "near-tie")
+            compared.append({"docs": [c, c + len(chunk)], "responses_differ": differs,
+                             **vs})
+    finally:
+        harness.load_video_indices = saved
+    n_docs = {"batch_1": len(docs), f"batch_{HARNESS_BATCH}": len(docs),
+              "egoschema_ppl": len(ego)}
+    n_ll = sum(len(d["option"]) for d in ego)
+    want = {"batch_1": {"vit_attention": 26 * len(docs), "flash_attention": 28 * len(docs)},
+            f"batch_{HARNESS_BATCH}": {"vit_attention": 26 * len(docs),
+                                       "flash_attention": 28 * -(-len(docs) // HARNESS_BATCH)},
+            "egoschema_ppl": {"vit_attention": 26 * n_ll, "flash_attention": 28 * n_ll}}
+    out = {}
+    for name, r in runs.items():
+        res = r["res"]
+        check(r["launches"] == want[name], f"harness {name} launched {r['launches']}, "
+              f"want {want[name]}")
+        check(len(res.results) == n_docs[name] and len(res.samples) == n_docs[name]
+              and not any(str(s["response"]).startswith("[error:") for s in res.samples),
+              f"harness {name}: {len(res.results)} results")
+        out[name] = {"docs": n_docs[name], "wall_s": r["wall_s"],
+                     "docs_per_s": n_docs[name] / r["wall_s"],
+                     "launches": r["launches"],
+                     "launches_per_doc": {k: v / n_docs[name]
+                                          for k, v in r["launches"].items()},
+                     "peak_memory_gb": r["peak_memory_gb"], "metrics": res.metrics,
+                     "responses": [s["response"] for s in res.samples]}
+    ppl = runs["egoschema_ppl"]["res"]
+    check(all(s["pred_answer"] in range(5) for s in ppl.samples),
+          f"EgoSchema-ppl answers {[s['pred_answer'] for s in ppl.samples]}")
+    if one == many:
+        check(runs["batch_1"]["res"].metrics == runs[f"batch_{HARNESS_BATCH}"]["res"].metrics,
+              "equal responses, different VideoMME metrics")
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in runs["batch_1"]["launches"]}
+    print(json.dumps({"phase": "4c", "summary": "harness", "prompt_tokens": lens,
+                      "max_new_tokens": n_new, "frames": N_SELECT,
+                      "decode": "seeded frames", "scoring_s": t_score,
+                      "runs": out, "batched_vs_single": compared,
+                      "responses_equal": one == many, "launches": total,
                       "phase_wall_s": time.perf_counter() - t_phase}))
     return total
 
@@ -1311,22 +1688,27 @@ def main(argv=None):
     s_main = answer_prompt_len(N_SELECT)
     s_rollouts = {f"rollout_k{k}": answer_prompt_len(k, rollout_question())
                   for k in sorted(set(TRAIN_K.values()), reverse=True)}
+    _, s_harness = harness_docs()
     vit_row = phase_kernel_vit(args.seed)
-    flash_row = phase_kernel_flash(args.seed, s_main, s_rollouts)
+    flash_row = phase_kernel_flash(args.seed, s_main, s_rollouts, s_harness)
     variant_rows = phase_kernel_variants(args.seed)
     phase_parity_scorer(args.seed)
     phase_parity_llava(args.seed)
     n_score, idx, frames, scorer = phase_main_scoring(args.seed)
     answer, model = phase_main_answer(args.seed, frames, idx, s_main)
     train = phase_main_train(args.seed, scorer, model)
+    evaluate = phase_main_harness(args.seed, scorer, model)
     del scorer, model
     torch.cuda.empty_cache()
     vit_row["shapes"]["clip"]["launches"] = n_score
     vit_row["shapes"]["siglip"]["launches"] = answer["vit_attention"]
-    vit_row["launches"] = n_score + answer["vit_attention"] + train["vit_attention"]
-    flash_row["launches"] = answer["flash_attention"] + train["flash_attention"]
+    vit_row["launches"] = (n_score + answer["vit_attention"] + train["vit_attention"]
+                           + evaluate["vit_attention"])
+    flash_row["launches"] = (answer["flash_attention"] + train["flash_attention"]
+                             + evaluate["flash_attention"])
     for row in (vit_row, flash_row):
         row["train"] = {"launches": train[row["name"]]}
+        row["evaluate"] = {"launches": evaluate[row["name"]]}
     phase_bench(args.seed, variant_rows)
     print(json.dumps({"kernels": [vit_row, flash_row]
                       + [variant_rows[r[0]] for r in VARIANT_ROWS]}))

@@ -2,10 +2,13 @@
 neither JAX nor the JAX package, and its entry points refuse to run without
 a card unless told ``device="cpu"``."""
 
+import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +30,12 @@ bad = sorted(m for m in sys.modules
              or m == "tspo_tpu" or m.startswith("tspo_tpu."))
 assert {"tspo_tpu_torch.train.trainer", "tspo_tpu_torch.train.grpo",
         "tspo_tpu_torch.train.checkpoint", "tspo_tpu_torch.train.rewards",
-        "tspo_tpu_torch.video.augment", "tspo_tpu_torch.cli.train"} <= set(names)
+        "tspo_tpu_torch.video.augment", "tspo_tpu_torch.cli.train",
+        "tspo_tpu_torch.eval.harness", "tspo_tpu_torch.eval.tasks",
+        "tspo_tpu_torch.eval.caching", "tspo_tpu_torch.eval.text_metrics",
+        "tspo_tpu_torch.eval.llm_judge", "tspo_tpu_torch.eval.more_tasks",
+        "tspo_tpu_torch.eval.plm_videobench", "tspo_tpu_torch.eval.funqa",
+        "tspo_tpu_torch.cli.evaluate"} <= set(names)
 print(len(names), bad)
 """
 
@@ -50,6 +58,28 @@ def test_sources_never_name_jax_or_tspo_tpu_imports():
                 assert not s.startswith(("import tspo_tpu ", "from tspo_tpu ",
                                          "from tspo_tpu.", "import tspo_tpu.")), \
                     f"{path}: {s}"
+
+
+def _port_sources():
+    return [ROOT / "chip_smoke.py", *sorted((ROOT / "tspo_tpu_torch").rglob("*.py"))]
+
+
+def test_sources_never_name_jax_or_tspo_tpu_in_strings():
+    """What an import statement cannot show: a module named by a string
+    (``importlib.import_module(f"tspo_tpu.eval.{name}")``).  No source of
+    the port, and not ``chip_smoke.py``, holds ``tspo_tpu.`` outside
+    ``tspo_tpu_torch.``, nor a string literal naming the ``jax`` module."""
+    foreign = re.compile(r"tspo_tpu\.")
+    jax_string = re.compile(r"""(["'])jax(\.[\w.]*)?\1|["']jax\.|f["']jax\b""")
+    for path in _port_sources():
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not foreign.search(line.replace("tspo_tpu_torch.", "")), \
+                f"{path}:{n}: {line.strip()}"
+            assert not jax_string.search(line), f"{path}:{n}: {line.strip()}"
+    probe = 'importlib.import_module(f"tspo_tpu.eval.{mod_name}")'
+    assert foreign.search(probe.replace("tspo_tpu_torch.", ""))
+    assert jax_string.search('import_module("jax")')
+    assert jax_string.search("sys.modules['jax.numpy']")
 
 
 def test_checkpoint_libraries_load_only_inside_loaders():
@@ -216,7 +246,6 @@ def test_trainer_and_train_cli_default_to_cuda_and_raise_without_card(
     ["--mesh-data", "2"], ["--coordinator", "localhost:1234"],
     ["--num-processes", "2"], ["--process-id", "0"],
     ["--ckpt-backend", "orbax"], ["--tensorboard"], ["--quantize-backbone"],
-    ["--cross-batch-rollouts"],
 ])
 def test_train_cli_unported_options_raise(tmp_path, flags):
     from tspo_tpu_torch.cli import train as train_cli
@@ -240,5 +269,56 @@ def test_trainer_mesh_orbax_and_multihost_raise(tmp_path):
         OrbaxCheckpointer(str(tmp_path))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         _tiny_trainer(tmp_path, "cpu").train_step_batch_global([], None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _tiny_trainer(tmp_path, "cpu", cfg=TrainConfig(cross_batch_rollouts=True))
+
+
+def test_train_cli_cross_batch_rollouts_runs_a_step_like_the_jax_cli(
+        tmp_path, monkeypatch):
+    """``tspo-torch-train --cross-batch-rollouts --batch-size 2`` on a toy
+    row takes one step on the CPU and writes the JAX CLI's metrics keys (the
+    stub backbone has no ``generate_batch_multi``: both trainers answer one
+    ``generate`` a subset)."""
+    cv2 = pytest.importorskip("cv2")
+    from tspo_tpu.cli import common as jcommon
+    from tspo_tpu.cli import train as jcli
+    from tspo_tpu_torch.cli import train as train_cli
+    w = cv2.VideoWriter(str(tmp_path / "v.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                        1.0, (48, 48))
+    for i in range(24):
+        w.write(np.full((48, 48, 3), 10 * i, np.uint8))
+    w.release()
+    jsonl = tmp_path / "rows.jsonl"
+    jsonl.write_text(json.dumps({"video": "v.mp4", "original_question":
+                                 "<image>\nWhen?\nA. early\nB. late",
+                                 "solution": "<answer>A</answer>",
+                                 "type": "general"}) + "\n")
+    monkeypatch.setattr(jcommon, "enable_compilation_cache", lambda: None)
+    args = ["--jsonl-path", str(jsonl), "--video-folder", str(tmp_path), "--tiny",
+            "--backbone", "stub", "--cross-batch-rollouts", "--batch-size", "2",
+            "--max-steps", "1", "--num-generations", "2",
+            "--training-sample-len", "4", "--window-size", "4"]
+    jcli.main(args + ["--output-dir", str(tmp_path / "jax")])
+    train_cli.main(args + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    lines = {side: [json.loads(x) for x in
+                    (tmp_path / side / "metrics.jsonl").read_text().splitlines()]
+             for side in ("jax", "port")}
+    assert len(lines["port"]) == len(lines["jax"]) == 1
+    m, jm = lines["port"][0], lines["jax"][0]
+    assert set(m) - {"time"} == set(jm) - {"time"}
+    assert (m["step"], m["batch"], m["score_tau"]) == (jm["step"], jm["batch"],
+                                                       jm["score_tau"]) == (0, 2, jm["score_tau"])
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+
+
+def test_evaluate_cli_defaults_to_cuda_and_raises_without_card(monkeypatch, tmp_path):
+    from tspo_tpu_torch.cli import evaluate as evaluate_cli
+    _no_card(monkeypatch)
+    assert evaluate_cli.build_parser().parse_args([]).device == "cuda"
+    docs = tmp_path / "docs.json"
+    docs.write_text("[]")
+    argv = ["--task", "VideoMME", "--frame-idx-json", str(docs), "--output",
+            str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_cli.main(argv)
+    assert not (tmp_path / "out").exists()
+    evaluate_cli.main(argv + ["--device", "cpu"])
+    assert len(list((tmp_path / "out").glob("VideoMME_rank0_*"))) == 2   # json + jsonl

@@ -443,3 +443,98 @@ def test_cli_batched_epoch_matches_the_jax_cli(data, tmp_path, monkeypatch):
         assert set(m) - {"time"} == set(jm)
         assert (m["score_tau"], m["batch"]) == (jm["score_tau"], jm["batch"])
         assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+
+
+# -- batched rollouts through a tiny LLaVA backbone --------------------------
+
+def _letter_decode(toks):
+    """The tiny LLaVA's tokens as an option letter, so that rewards depend on
+    what the backbone answers for each subset."""
+    return "A" if toks and toks[0] % 2 == 0 else "B"
+
+
+class Spy:
+    """A backbone's calls, by method and rows, passed through to it."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def generate(self, frames, question):
+        self.calls.append(("generate", 1))
+        return self.model.generate(frames, question)
+
+    def generate_batch(self, frames_list, question):
+        self.calls.append(("generate_batch", len(frames_list)))
+        return self.model.generate_batch(frames_list, question)
+
+    def generate_batch_multi(self, frames_list, questions):
+        self.calls.append(("generate_batch_multi", len(frames_list)))
+        return self.model.generate_batch_multi(frames_list, questions)
+
+
+@pytest.fixture(scope="module")
+def llava_pair():
+    """The tiny fp32 LLaVA of test_torch_llava_video.py in both packages,
+    answering in 2 tokens read as a letter."""
+    from test_torch_llava_video import CFG as LCFG
+    from test_torch_llava_video import JCFG as JLCFG
+    from test_torch_llava_video import _encode, llava_state_dict
+    from tspo_tpu.models import llava_video as jl
+    from tspo_tpu_torch.models import llava_video as tl
+    sd = llava_state_dict()
+    jm = jl.LLaVAVideoModel.from_torch_checkpoint(
+        sd, JLCFG, dtype=jnp.float32, encode=_encode, decode=_letter_decode,
+        max_new_tokens=2)
+    pm = tl.LLaVAVideoModel.from_torch_checkpoint(
+        sd, LCFG, dtype=torch.float32, device="cpu", encode=_encode,
+        decode=_letter_decode, batch_frames=16, max_new_tokens=2)
+    return jm, pm
+
+
+def _llava_pair(root, pool, out, llava_pair, cfg_kw):
+    jt, pt = _pair(root, pool, out, cfg_kw)
+    jt.backbone, pt.backbone = Spy(llava_pair[0]), Spy(llava_pair[1])
+    return jt, pt
+
+
+def test_train_step_takes_generate_batch_like_jax(data, tmp_path, record, llava_pair):
+    """Both trainers answer a step's G subsets in one ``generate_batch`` call
+    of the tiny LLaVA: the same indices, completions' rewards and gradients."""
+    root, general, specific, pool = data
+    jt, pt = _llava_pair(root, pool, tmp_path, llava_pair, {"grad_accum": 1})
+    G = CFG_KW["num_generations"]
+    for i, row in enumerate([specific, general]):
+        jm, m = jt.train_step(row), pt.train_step(row)
+        jt.step += 1
+        pt.step += 1
+        js, ps = record["jax"][i], record["port"][i]
+        np.testing.assert_array_equal(ps["indices"], js["indices"])
+        np.testing.assert_array_equal(ps["rewards"], js["rewards"])
+        _assert_grads_close(js, ps)
+        _assert_metrics_close(m, jm)
+        assert m["completion_length"] == jm["completion_length"]
+    assert pt.backbone.calls == jt.backbone.calls == [("generate_batch", G)] * 2
+    assert any(r["rewards"].std() > 0 for r in record["port"])   # answers differ
+    _assert_params_close(jt, pt, record["applied"])
+
+
+def test_cross_batch_rollouts_match_jax(data, tmp_path, record, llava_pair):
+    """``cross_batch_rollouts=True`` at batch size 2: one ragged
+    ``generate_batch_multi`` call over the 2 x G rollouts (K=8 and 4 frames)
+    in both trainers, with JAX's indices, rewards and gradients."""
+    root, general, specific, pool = data
+    jt, pt = _llava_pair(root, pool, tmp_path, llava_pair,
+                         {"grad_accum": 1, "cross_batch_rollouts": True})
+    rows = [specific, general]
+    jm, m = jt.train_step_batch(rows), pt.train_step_batch(rows)
+    js, ps = record["jax"][0], record["port"][0]
+    np.testing.assert_array_equal(ps["indices"], js["indices"])
+    np.testing.assert_array_equal(ps["rewards"], js["rewards"])
+    _assert_grads_close(js, ps)
+    _assert_metrics_close(m, jm)
+    G = CFG_KW["num_generations"]
+    assert pt.backbone.calls == jt.backbone.calls == [("generate_batch_multi", 2 * G)]
+    # without the flag each sample takes its own generate_batch call
+    jt2, pt2 = _llava_pair(root, pool, tmp_path / "b", llava_pair, {"grad_accum": 1})
+    jt2.train_step_batch(rows), pt2.train_step_batch(rows)
+    assert pt2.backbone.calls == jt2.backbone.calls == [("generate_batch", G)] * 2

@@ -8,10 +8,11 @@ selector (counterpart of ``tspo_tpu/cli/train.py``).
 
 Runs on the card (``--device cuda``, the default) and raises without one
 unless given ``--device cpu``.  The JAX CLI's mesh and multi-host options,
-orbax checkpoints, TensorBoard export, the int8 backbone and cross-batch
-rollouts are accepted by the parser and raise: they are not ported yet
-(ROADMAP.md).  ``--batch-size B`` takes B samples a step
-(``TSPOTrainer.train(batch_size=B)``).
+orbax checkpoints, TensorBoard export and the int8 backbone are accepted by
+the parser and raise: they are not ported yet (ROADMAP.md).  ``--batch-size
+B`` takes B samples a step (``TSPOTrainer.train(batch_size=B)``), and with
+``--cross-batch-rollouts`` answers all B x G rollouts of a step in one
+ragged batched decode.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def build_parser():
                         "--num_train_epochs; --max-steps then only caps it")
     p.add_argument("--cross-batch-rollouts", action="store_true",
                    help="one ragged-prompt decode for all B x G rollouts of "
-                        "a batched step (not ported)")
+                        "a batched step")
     p.add_argument("--save-steps", type=int, default=100)
     p.add_argument("--save-total-limit", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
@@ -86,9 +87,6 @@ def _refuse_unported(args):
     if args.quantize_backbone:
         raise NotImplementedError("the int8 backbone is not ported yet "
                                   "(ROADMAP.md Queue 1 item 5)")
-    if args.cross_batch_rollouts:
-        from ..train.trainer import CROSS_BATCH_UNPORTED
-        raise NotImplementedError(CROSS_BATCH_UNPORTED)
 
 
 def main(argv=None):

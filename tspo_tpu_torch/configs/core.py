@@ -100,7 +100,8 @@ class TrainConfig:
     # and tau anneals over exactly that span; max_steps then only caps it
     num_train_epochs: float | None = None
     # batch ALL B x G rollouts of a train_step_batch into ONE ragged-prompt
-    # decode (backbone.generate_batch_multi, not ported: True raises)
+    # decode (backbone.generate_batch_multi; a backbone without it answers
+    # each sample with its own generate_batch or generate calls)
     cross_batch_rollouts: bool = False
     seed: int = 0
     frame_bucket: int = 128            # padded candidate-frame bucket

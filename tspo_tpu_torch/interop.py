@@ -89,7 +89,7 @@ def hf_state_dict_from_clip_tree(tree: dict, cfg: CLIPConfig) -> dict:
 
 def clip_tree_from_hf_state_dict(sd: dict, cfg: CLIPConfig) -> dict:
     """HF ``CLIPModel`` state dict -> JAX CLIP tree (numpy leaves): what
-    ``tspo_tpu.models.clip.clip_params_from_torch`` computes."""
+    ``tspo_tpu/models/clip.py::clip_params_from_torch`` computes."""
     sd = {k: t2n(v) for k, v in sd.items()}
     t, v = cfg.text, cfg.vision
     patch = sd["vision_model.embeddings.patch_embedding.weight"]

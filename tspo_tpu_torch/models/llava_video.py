@@ -14,10 +14,15 @@ pooled afterwards.  The parameters live in one ``nn.Module``
 (:class:`LlavaQwenNet`); :meth:`LLaVAVideoModel.from_torch_checkpoint` reads
 the llava_qwen state-dict layout.
 
+Besides ``generate``: batched greedy generation over ragged rows
+(``generate_batch_multi``, and ``generate_batch`` for one question), and
+teacher-forced scoring of a continuation (``loglikelihood``,
+``continuation_logprobs``).
+
 Out of scope here, queued in ROADMAP.md: sampled, streamed and speculative
-generation, the audio track, multi-round conversations with prefix reuse,
-batched generation, log-likelihood scoring and int8 weights.  Asking for one
-of them raises ``NotImplementedError``; nothing runs another path instead.
+generation, the audio track, multi-round conversations with prefix reuse and
+int8 weights.  Asking for one of them raises ``NotImplementedError``; nothing
+runs another path instead.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .qwen2 import KVCache, Qwen2Config, Qwen2Model, embed_tokens, greedy_decode
+from .qwen2 import (KVCache, Qwen2Config, Qwen2Model, embed_tokens, greedy_decode,
+                    lm_logits, qwen2_forward)
 from .siglip import SigLIPConfig, SigLIPVisionTower, siglip_preprocess
 
 IMAGE_TOKEN_INDEX = -200
@@ -371,6 +377,119 @@ class LLaVAVideoModel:
         toks = toks[:n].cpu().numpy()
         toks = toks[toks != self.cfg.lm.eos_token_id]
         return self.decode(toks.tolist())
+
+    def generate_batch(self, frames_list, question: str,
+                       max_new_tokens: int | None = None) -> list:
+        """Greedy answers for G frame subsets under one question: the TSPO
+        rollout, one batched decode in place of G ``generate`` calls (the
+        equal-question case of :meth:`generate_batch_multi`)."""
+        return self.generate_batch_multi(frames_list,
+                                         [question] * len(frames_list),
+                                         max_new_tokens=max_new_tokens)
+
+    @torch.inference_mode()
+    def _prepare_batch(self, frames_list, questions,
+                       max_new_tokens: int | None = None):
+        """The prompt half of :meth:`generate_batch_multi`: each row
+        tokenized, its frames encoded and spliced, the rows right-padded to
+        the longest.  Returns (embeds [B, S, D], valid [B, S] bool prefixes,
+        max_new clamped to the cache headroom)."""
+        if self.encode is None or self.decode is None:
+            raise ValueError("needs encode/decode tokenizer callables")
+        max_new = self.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        rows = []
+        for frames, question in zip(frames_list, questions):
+            input_ids = tokenize_with_image(self._prompt(question), self.encode,
+                                            self.bos_token_id)
+            rows.append(self.splice_embeddings(input_ids,
+                                               self.encode_video(frames))[0])
+        S = max(int(r.shape[0]) for r in rows)
+        embeds = torch.stack([torch.nn.functional.pad(r, (0, 0, 0, S - r.shape[0]))
+                              for r in rows])
+        valid = (torch.arange(S, device=self.device)[None, :]
+                 < torch.tensor([r.shape[0] for r in rows], device=self.device)[:, None])
+        headroom = self.cfg.max_context - S
+        if headroom < 1:
+            raise ValueError(
+                f"longest prompt is {S} tokens but max_context="
+                f"{self.cfg.max_context}: no cache slot left to generate "
+                "into (fewer frames, or raise max_context)")
+        return embeds, valid, min(max_new, headroom)
+
+    @torch.inference_mode()
+    def generate_batch_multi(self, frames_list, questions,
+                             max_new_tokens: int | None = None) -> list:
+        """Greedy answers for rows with their own questions and frame sets
+        (ragged prompts): one prefill over the right-padded rows (one flash
+        launch a layer) and one decode whose rope and mask follow each row's
+        valid length.  A row that meets EOS steps on with the others; its
+        later tokens are EOS and are dropped."""
+        embeds, valid, max_new = self._prepare_batch(frames_list, questions,
+                                                    max_new_tokens)
+        B, S = valid.shape
+        max_len = min(self.cfg.max_context, S + max_new + 8)
+        cache = KVCache.create(self.cfg.lm, B, max_len, embeds.dtype, self.device)
+        toks, _ = greedy_decode(self.lm, embeds, valid, cache, max_new)
+        toks = toks.reshape(B, -1).cpu().numpy()
+        eos = self.cfg.lm.eos_token_id
+        return [self.decode(row[row != eos].tolist()) for row in toks]
+
+    @torch.inference_mode()
+    def _continuation_log_softmax(self, frames, question: str, continuation: str,
+                                  prompt: str | None = None):
+        """One teacher-forced forward over prompt + continuation: returns
+        (cont_ids, fp32 log-softmax rows at the continuation's positions
+        [n_cont, V]).  The continuation is tokenized on its own."""
+        prompt = prompt if prompt is not None else self._prompt(question)
+        prompt_ids = tokenize_with_image(prompt, self.encode, self.bos_token_id)
+        cont_ids = list(self.encode(continuation))
+        if frames is None or len(frames) == 0:
+            video_tokens = torch.zeros((0, self.cfg.lm.hidden_size),
+                                       dtype=self.lm.model.embed_tokens.weight.dtype,
+                                       device=self.device)
+        else:
+            video_tokens = self.encode_video(frames)
+        embeds = self.splice_embeddings(prompt_ids + cont_ids, video_tokens)
+        S, n_cont = embeds.shape[1], len(cont_ids)
+        cache = KVCache.create(self.cfg.lm, 1, S, embeds.dtype, self.device)
+        hidden, _ = qwen2_forward(self.lm, embeds, cache,
+                                  torch.arange(S, device=self.device),
+                                  torch.ones(1, S, dtype=torch.bool, device=self.device))
+        logits = lm_logits(self.lm, hidden[0, -n_cont - 1:-1])       # [n_cont, V]
+        return cont_ids, torch.log_softmax(logits, dim=-1)
+
+    def loglikelihood(self, frames: np.ndarray, question: str, continuation: str,
+                      prompt: str | None = None):
+        """(logprob, is_greedy) of ``continuation`` after the video prompt:
+        the lmms-eval ``loglikelihood`` request type."""
+        cont_ids, lp = self._continuation_log_softmax(frames, question,
+                                                      continuation, prompt)
+        targets = torch.as_tensor(cont_ids, device=lp.device)
+        token_lp = lp[torch.arange(len(cont_ids), device=lp.device), targets]
+        greedy = lp.argmax(dim=-1) == targets
+        return float(token_lp.sum()), bool(greedy.all())
+
+    def continuation_logprobs(self, frames, question: str, continuation: str,
+                              prompt: str | None = None, top_k: int = 0):
+        """Per-token log-probabilities of ``continuation`` after the prompt,
+        from one teacher-forced forward.  Returns host arrays (cont_ids [n],
+        token_logprobs [n] float64, top_ids [n, top_k] int32, top_logprobs
+        [n, top_k] float64); the top_* are empty at ``top_k=0``."""
+        cont_ids, lp = self._continuation_log_softmax(frames, question,
+                                                      continuation, prompt)
+        n = len(cont_ids)
+        targets = torch.as_tensor(cont_ids, device=lp.device)
+        token_lp = lp[torch.arange(n, device=lp.device), targets].cpu().numpy()
+        token_lp = token_lp.astype(np.float64)
+        if top_k > 0:
+            top_lps, top_ids = torch.topk(lp, top_k, dim=-1)
+            return (cont_ids, token_lp, top_ids.cpu().numpy().astype(np.int32),
+                    top_lps.cpu().numpy().astype(np.float64))
+        return (cont_ids, token_lp, np.zeros((n, 0), np.int32),
+                np.zeros((n, 0), np.float64))
 
     # -- weights --------------------------------------------------------------
 

@@ -54,25 +54,28 @@ class StepClock:
         self.events.append(ev)
 
 
-def timed_greedy_decode(model, embeds, max_new_tokens: int):
-    """``greedy_decode`` over ``embeds`` [1, S, D] with the cache and
-    validity ``LLaVAVideoModel.generate`` gives it.  Returns (token ids up to
-    the last step, prefill + first-token ms, [ms of each decode step]), read
-    from CUDA events: no synchronise is added inside the loop."""
+def timed_greedy_decode(model, embeds, max_new_tokens: int, valid=None):
+    """``greedy_decode`` over ``embeds`` [B, S, D] with the cache
+    ``LLaVAVideoModel.generate`` (B = 1, every position valid) or
+    ``generate_batch_multi`` (``valid`` [B, S], ragged rows) gives it.
+    Returns (token ids up to the last step, [S] for B = 1 and [B, steps]
+    else, prefill + first-token ms, [ms of each decode step]), read from
+    CUDA events: no synchronise is added inside the loop."""
     import torch
 
     from ..models.qwen2 import KVCache, greedy_decode
-    S = embeds.shape[1]
-    cache = KVCache.create(model.cfg.lm, 1,
+    B, S = embeds.shape[:2]
+    cache = KVCache.create(model.cfg.lm, B,
                            min(model.cfg.max_context, S + max_new_tokens + 8),
                            embeds.dtype, model.device)
-    valid = torch.ones(1, S, dtype=torch.bool, device=model.device)
+    if valid is None:
+        valid = torch.ones(B, S, dtype=torch.bool, device=model.device)
     clock = StepClock()
     toks, n = greedy_decode(model.lm, embeds, valid, cache, max_new_tokens,
                             step_logits=clock)
     torch.cuda.synchronize()
     ev = clock.events
-    return (toks[:n].cpu().tolist(), clock.start.elapsed_time(ev[0]),
+    return (toks[..., :n].cpu().tolist(), clock.start.elapsed_time(ev[0]),
             [a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
 
 
@@ -90,6 +93,28 @@ def timed_answer(model, frames, question: str, max_new_tokens: int):
     t1 = time.perf_counter()
     toks, prefill_ms, steps = timed_greedy_decode(model, embeds, max_new)
     stages = {"prompt_tokens": embeds.shape[1], "encode_splice_s": t1 - t0,
+              "prefill_first_token_s": prefill_ms / 1e3,
+              "decode_s": sum(steps) / 1e3,
+              "total_s": time.perf_counter() - t0}
+    return toks, stages, steps
+
+
+def timed_batch_answer(model, frames_list, questions, max_new_tokens: int):
+    """The batched answer of ``generate_batch_multi`` through the calls it
+    makes: ``_prepare_batch`` (each row's vision encode, tokenize, splice,
+    right-padding) on the host clock, then :func:`timed_greedy_decode` over
+    the ragged rows.  Returns (token ids [B, steps], stages in seconds, [ms
+    of each decode step])."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds, valid, max_new = model._prepare_batch(frames_list, questions,
+                                                  max_new_tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, prefill_ms, steps = timed_greedy_decode(model, embeds, max_new, valid)
+    stages = {"rows": embeds.shape[0], "prompt_tokens": embeds.shape[1],
+              "encode_splice_s": t1 - t0,
               "prefill_first_token_s": prefill_ms / 1e3,
               "decode_s": sum(steps) / 1e3,
               "total_s": time.perf_counter() - t0}

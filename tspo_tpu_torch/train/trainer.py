@@ -8,9 +8,10 @@ sample:
      needle-in-a-haystack composites with a ground-truth mask
   2. device: CLIP features once per sample (``vit_attention`` on the card)
   3. device: G Gumbel-top-k frame subsets from the selector logits
-  4. host + device: the frozen backbone answers once per subset
-     (``generate``: SigLIP, Qwen2 prefill through ``flash_attention``,
-     greedy decode)
+  4. host + device: the frozen backbone answers the G subsets in one
+     batched call when it has ``generate_batch`` (SigLIP per subset, one
+     Qwen2 prefill through ``flash_attention``, one greedy decode), else one
+     ``generate`` a subset
   5. host: rewards (accuracy / temporal / format) -> group advantages
   6. device: REINFORCE surrogate update of the selector only
 
@@ -18,7 +19,9 @@ Everything runs on the scorer's device: ``cuda`` unless the scorer was
 built for the CPU.  The Gumbel draws come from a ``torch.Generator`` seeded
 by ``cfg.seed`` on that device, or from ``noise_fn`` when given; the host
 augmentation from ``np.random.default_rng(cfg.seed)``, as in the JAX
-package.  The JAX package's mesh and multi-host steps are not ported.
+package.  With ``cfg.cross_batch_rollouts`` a batched step answers all
+B x G rollouts in one ragged ``generate_batch_multi`` call.  The JAX
+package's mesh and multi-host steps are not ported.
 """
 
 from __future__ import annotations
@@ -53,9 +56,6 @@ ANSWER_TRAILER = ("\nPlease answer with the option's letter from the given "
 
 _MULTIHOST = ("mesh and multi-host training are not ported yet (ROADMAP.md "
               "Queue 1 item 6)")
-CROSS_BATCH_UNPORTED = ("cross_batch_rollouts needs the backbone's "
-                        "generate_batch_multi, not ported yet (ROADMAP.md "
-                        "Queue 1 item 3)")
 
 
 def _pad(x: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -86,8 +86,6 @@ class TSPOTrainer:
             raise NotImplementedError(_MULTIHOST)
         if self.cfg.ckpt_backend != "npz":
             raise NotImplementedError(ORBAX_UNPORTED)
-        if self.cfg.cross_batch_rollouts:
-            raise NotImplementedError(CROSS_BATCH_UNPORTED)
         self.device = self.scorer.device
         self.optimizer = make_optimizer(self.cfg, self.scorer.selector.parameters())
         self.step = 0
@@ -198,9 +196,12 @@ class TSPOTrainer:
             train_cfg=self.cfg, window_size=self.cfg.window_size)
 
     def _completions(self, video, idx_g, question: str) -> list:
-        """One answer per subset, one ``generate`` after another (the JAX
-        trainer's fallback when the backbone has no ``generate_batch``)."""
+        """One answer per subset: one batched decode for all G when the
+        backbone has ``generate_batch`` (equal prompt lengths), else one
+        ``generate`` after another."""
         gen_q = question + ANSWER_TRAILER
+        if hasattr(self.backbone, "generate_batch"):
+            return self.backbone.generate_batch([video[idx] for idx in idx_g], gen_q)
         return [self.backbone.generate(video[idx], gen_q) for idx in idx_g]
 
     def _rewards(self, row, completions, idx_g, mask) -> np.ndarray:
@@ -264,12 +265,27 @@ class TSPOTrainer:
 
     def _rollout_rewards(self, rows, prepared, idx_bg, k_lens) -> np.ndarray:
         """Frozen-backbone rollouts + reward fan-out.  idx_bg [B, G, K]
-        (0-padded past k_lens[b]); returns rewards [B, G]."""
-        rewards = np.zeros((len(rows), self.cfg.num_generations), np.float32)
+        (0-padded past k_lens[b]); returns rewards [B, G].  Under
+        ``cfg.cross_batch_rollouts``, and when the backbone has
+        ``generate_batch_multi``, all B x G rollouts decode as one call over
+        ragged prompts."""
+        G = self.cfg.num_generations
+        rewards = np.zeros((len(rows), G), np.float32)
+        per_sample = None
+        if self.cfg.cross_batch_rollouts and hasattr(self.backbone,
+                                                     "generate_batch_multi"):
+            frame_sets, questions = [], []
+            for b, (video, _, _, question, _, _) in enumerate(prepared):
+                for idx in idx_bg[b]:
+                    frame_sets.append(video[idx[:k_lens[b]]])
+                    questions.append(question + ANSWER_TRAILER)
+            flat = self.backbone.generate_batch_multi(frame_sets, questions)
+            per_sample = [flat[b * G:(b + 1) * G] for b in range(len(prepared))]
         for b, (row, (video, mask, _, question, _, stype)) in enumerate(
                 zip(rows, prepared)):
             idx_g = [idx[:k_lens[b]] for idx in idx_bg[b]]
-            completions = self._completions(video, idx_g, question)
+            completions = (per_sample[b] if per_sample is not None
+                           else self._completions(video, idx_g, question))
             rewards[b] = compose_rewards(
                 self._rewards(row, completions, idx_g, mask), stype)
         return rewards
