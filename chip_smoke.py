@@ -25,7 +25,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    and 8 frames) alone and as one batched prefill of G=8 equal rows, at the
    harness's batched prefill of 4 ragged rows (phase 4c's first batch,
    12160-12288 tokens, ends on a 128-key tile edge and mid-tile; its
-   library time is one masked SDPA call), ragged B=2, a ``q_offset`` suffix, a
+   library time is one masked SDPA call), the suffix prefill of phase 4d (a
+   1024-row block at ``q_offset`` = the prompt length over K/V sliced from a
+   cache with 256 spare slots; its library time is one SDPA call with the
+   bottom-right causal mask ``causal_lower_right``), ragged B=2, a ``q_offset`` suffix, a
    sliding ``window``, the wgmma kernel's tile edges (Sq and Sk off a
    multiple of 128, lengths mid-tile and on a tile edge, ``q_offset`` off a
    multiple of 128, a window across tile edges, k/v as a slice of a longer
@@ -100,6 +103,24 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    ``batch_vs_single`` finds again; then 2 ``EgoSchema-ppl`` docs of 5
    choices through ``loglikelihood``.  Exact launches of each run, docs/s,
    peak memory.
+4d. Conversation, sampling, streams and speculative decode on phase 4's
+   model and frames, each user call's launches exact: (a) three rounds of
+   at most 16 tokens through one ``ConversationState`` (round 1: 26
+   ``vit_attention`` and 28 ``flash_attention``; rounds 2 and 3: none, the
+   extension chunks are dense and the video is reused) against the
+   stateless ``generate_multi_round``, equal or parted at a near-tie under
+   ``margin_rule``, then both conversations again through the calls they
+   make for time to first token, wall time and decode ms a step from CUDA
+   events; (b) ``prefill_extend`` of a 1024-token block after the prompt
+   (28 flash launches at ``q_offset`` = the prompt length), its last
+   position's fp32 logits within 2e-2 relative of one prefill of all the
+   tokens, the greedy token equal or at a near-tie; (c) ``generate`` at
+   ``temperature=0.7, top_p=0.9`` twice at one seed (equal), its stream at
+   that seed (joins to it), the greedy stream (joins to the greedy answer),
+   ``top_p=1e-6`` (the greedy tokens or a tie), and the chunked decode's ms
+   a step beside ``greedy_decode``'s; (d) ``generate`` with
+   ``speculative=True`` (the greedy answer or a near-tie), its forward
+   passes and decode ms a token beside greedy's.
    Every kernel count is set to 0 just before and read just after each
    path of phases 3 to 5.
 5. Variant bench main path: ``tools/bench_vit_attention_variants.run`` over
@@ -111,8 +132,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 6. One JSON line listing every ported kernel with its launches, error and
    times (``vit_attention``'s row at the CLIP shape, with every main-path
    shape under ``shapes``; ``flash_attention``'s rollout and batched
-   prefills under ``shapes``; the training and harness launches of each
-   under ``train`` and ``evaluate``); then, as the last line, ``{"ok":
+   prefills and the suffix prefill under ``shapes``; the training, harness
+   and phase-4d launches of each under ``train``, ``evaluate`` and
+   ``conversation``); then, as the last line, ``{"ok":
    true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or when
@@ -124,6 +146,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -155,6 +178,13 @@ HARNESS_VIDEOS = 4
 HARNESS_BATCH = 4
 HARNESS_TAILS = (61, 0, 128, 93, 5, 40, 77, 100)
 HARNESS_OPTIONS = ["A. a cup", "B. a phone", "C. a book", "D. nothing"]
+# phase 4d: the conversation's three questions (follow-ups of a few dozen
+# tokens), the suffix block prefilled after the answer prompt, and the
+# sampler's settings
+CONV_ROUNDS = (QUESTION, "And what does the person do with it next?",
+               "Why might the person be doing that, judging by the scene?")
+EXTEND_ROWS = 1024
+SAMPLING = {"temperature": 0.7, "top_p": 0.9}
 
 
 def check(cond: bool, msg: str):
@@ -539,8 +569,8 @@ def _live_keys(lengths, Sq: int, causal: bool, window, q_offset: int):
 
 
 # name, B, Sq, Sk, H, KV, hd, causal, lengths, window, q_offset, dtype, k/v
-# source: None (their own tensors), "slice" (cache[:, :Sk] of a longer
-# cache) or "poison" (that slice with NaN and inf in every row at or past
+# source: None (their own tensors), "slice" (cache[:, :Sk] of a cache of
+# Sk + 256 slots) or "poison" (that slice with NaN and inf in every row at or past
 # lengths[b], held against the plain version on the tail zeroed)
 FLASH_CASES = [
     ("main", 1, None, None, 28, 4, 128, True, None, None, 0, "bf16", None),
@@ -581,7 +611,7 @@ def flash_inputs(gen, B, Sq, Sk, H, KV, hd, lens, dtype, source):
     version is held on (the same but for a poisoned tail, zeroed there)."""
     import torch
     q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtype)
-    T = Sk if source is None else Sk + 64
+    T = Sk if source is None else Sk + 256
     k, v = (torch.randn(B, T, KV, hd, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
     if source == "poison":
@@ -634,6 +664,11 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict,
     lens_h = tuple(harness_lens[:HARNESS_BATCH])
     rollout_cases.append(("harness_batched", HARNESS_BATCH, max(lens_h), max(lens_h),
                           28, 4, 128, True, lens_h, None, 0, "bf16", None))
+    # phase 4d's suffix prefill: EXTEND_ROWS rows after the answer prompt,
+    # K/V the cache's slots up to the block's end (prefill_extend)
+    s_ext = s_main + EXTEND_ROWS
+    rollout_cases.append(("extend_q_offset", 1, EXTEND_ROWS, s_ext, 28, 4, 128, True,
+                          (s_ext,), None, s_main, "bf16", "slice"))
     shapes = {}
     for (name, B, Sq, Sk, H, KV, hd, causal, lens, window, off, tag,
          source) in FLASH_CASES + rollout_cases:
@@ -688,6 +723,22 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict,
                 lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
                     *views, attn_mask=mask), 10)
             del views, mask
+        elif name == "extend_q_offset":
+            # the same function as one SDPA call: the bottom-right causal
+            # mask over the valid keys, k/v repeated to the query heads
+            # outside the timed call
+            from torch.nn.attention.bias import causal_lower_right
+            n = lens[0]
+            views = [q.transpose(1, 2)] + [x[:, :n].repeat_interleave(H // KV, dim=2)
+                                           .transpose(1, 2) for x in (k, v)]
+            bias = causal_lower_right(Sq, n)
+            lib_out = F.scaled_dot_product_attention(*views, attn_mask=bias)
+            lib_err = (lib_out.transpose(1, 2).float() - ref.float()).abs().max().item()
+            check(lib_err <= 2e-2, f"SDPA's bottom-right causal call is another "
+                  f"function: max abs {lib_err} from the plain version")
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                *views, attn_mask=bias), 10)
+            del views, lib_out
         es = q.element_size()
         nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * es
         flops = 4 * hd * H * int(n_keys.sum())
@@ -711,8 +762,10 @@ def phase_kernel_flash(seed: int, s_main: int, s_rollouts: dict,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": lib_ms}
-        if name in s_rollouts or name.startswith(("rollouts_batched", "harness")):
-            shapes[name] = {"B": B, "Sq": Sq, "lengths": lens, "max_abs_err": err,
+        if name in s_rollouts or name.startswith(("rollouts_batched", "harness",
+                                                  "extend")):
+            shapes[name] = {"B": B, "Sq": Sq, "Sk": Sk, "q_offset": off,
+                            "lengths": lens, "max_abs_err": err,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v, k_ref, v_ref, out, ref
@@ -1183,7 +1236,7 @@ def phase_main_answer(seed: int, frames, idx, s_expect: int):
                       "answer_head": toks[:4]}))
     del runs
     torch.cuda.empty_cache()
-    return launches, model
+    return launches, model, selected, answer
 
 
 def seeded_decoder(seed: int):
@@ -1634,6 +1687,266 @@ def phase_main_harness(seed: int, scorer, model) -> dict:
     return total
 
 
+class LogitClock:
+    """A ``step_logits`` sink: a CUDA event when made and one as each
+    step's logits are appended (no synchronise in the loop), and each
+    step's fp32 logits of row 0, for ``margin_rule``."""
+
+    def __init__(self):
+        import torch
+        self._new = lambda: torch.cuda.Event(enable_timing=True)
+        self.start = self._new()
+        self.start.record()
+        self.events, self.logits = [], []
+
+    def append(self, logits):
+        ev = self._new()
+        ev.record()
+        self.events.append(ev)
+        self.logits.append(logits[0])
+
+    def step_ms(self) -> list:
+        """ms between consecutive logits: the decode steps (event 0 ends the
+        prefill)."""
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def _drive(fn, want: dict, tag: str):
+    """One user call with the kernel counts set to 0 just before and read
+    just after: (its result, wall s, launches), the launches held to
+    ``want``."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    check(got == want, f"{tag} launched {got}, want {want}")
+    return out, wall, got
+
+
+def phase_main_conversation(seed: int, model, frames, greedy_answer: str,
+                            s_main: int) -> dict:
+    """Phase 4d on phase 4's LLaVA-Video-7B-Qwen2 and its 64 frames: (a) a
+    three-round conversation with and without a ``ConversationState``,
+    (b) ``prefill_extend`` at full width, (c) sampling and the streams,
+    (d) speculative decode.  Returns the launches of its user calls."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from tspo_tpu_torch.models import qwen2
+    from tspo_tpu_torch.tools.profile_answer import timed_greedy_decode
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    n_new, eos, dev = 16, model.cfg.lm.eos_token_id, model.device
+    answer = {"vit_attention": 26, "flash_attention": 28}
+    none = {"vit_attention": 0, "flash_attention": 0}
+    total = Counter()
+
+    def drive(fn, want, tag):
+        out, wall, got = _drive(fn, want, tag)
+        total.update(got)
+        return out, wall
+
+    # (a) the conversation through the user calls, each with a LogitClock as
+    # its step_logits sink: its start event is recorded as the call starts,
+    # so start -> first logits is the time to first token
+    state = model.new_conversation_state()
+    turns, rounds = [], []
+
+    def round_(tt, st):
+        clock = LogitClock()
+        return model.generate_multi_round(frames, tt, n_new, state=st,
+                                          step_logits=clock), clock
+
+    def answer_tokens(clock):
+        """The greedy tokens of a round: each step's argmax, up to max_new,
+        cut at the first EOS."""
+        toks = [int(torch.argmax(lg)) for lg in clock.logits][:n_new]
+        return toks[:toks.index(eos)] if eos in toks else toks
+
+    for r, q in enumerate(CONV_ROUNDS):
+        tt = [*turns, (q, None)]
+        (stateless, clock_a), wall_sl = drive(lambda: round_(tt, None), answer,
+                                              f"stateless round {r + 1}")
+        (stateful, clock_b), wall_sf = drive(lambda: round_(tt, state),
+                                             answer if r == 0 else none,
+                                             f"stateful round {r + 1}")
+        toks_a, toks_b = answer_tokens(clock_a), answer_tokens(clock_b)
+        check(model.decode(toks_a) == stateless and model.decode(toks_b) == stateful,
+              f"round {r + 1}: the logits sink disagrees with the answer")
+        rule = margin_rule(toks_a + [eos], clock_a.logits, toks_b + [eos],
+                           clock_b.logits, eos, f"stateful round {r + 1} vs stateless")
+        check(rule["parted_at"] is not None or stateless == stateful,
+              f"round {r + 1}: the answers differ but their tokens agree")
+        steps_a, steps_b = clock_a.step_ms(), clock_b.step_ms()
+        ttft = lambda c: c.start.elapsed_time(c.events[0]) / 1e3  # noqa: E731
+        rounds.append({
+            "round": r + 1, "prompt_tokens": state.covered - len(toks_b),
+            "question_chars": len(q), "equal": stateless == stateful, **rule,
+            "stateless": {"wall_s": wall_sl, "ttft_s": ttft(clock_a),
+                          "decode_steps": len(steps_a),
+                          "decode_ms_per_step": float(np.mean(steps_a))},
+            "stateful": {"wall_s": wall_sf, "ttft_s": ttft(clock_b),
+                         "decode_steps": len(steps_b),
+                         "decode_ms_per_step": float(np.mean(steps_b)),
+                         "cache_slots": int(state.cache.k.shape[2]),
+                         "covered_after": state.covered}})
+        print(json.dumps({"phase": "4d", "check": "conversation", **rounds[-1]}))
+        turns.append((q, stateless))
+        del clock_a, clock_b
+
+    # (b) prefill_extend at full width: a 1024-token block after the prompt
+    embeds, _, _ = model._prepare_generate(frames, QUESTION, n_new, None)
+    check(embeds.shape[1] == s_main, f"prompt of {embeds.shape[1]} tokens, want {s_main}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    block = qwen2.embed_tokens(model.lm, torch.randint(
+        0, model.cfg.lm.vocab_size, (1, EXTEND_ROWS), generator=gen, device=dev)
+    ).to(embeds.dtype)
+    s_ext = s_main + EXTEND_ROWS
+    cache = qwen2.KVCache.create(model.cfg.lm, 1, s_ext + 256, embeds.dtype, dev)
+    qwen2.decode_prefill(model.lm, embeds, torch.ones(1, s_main, dtype=torch.bool,
+                                                      device=dev), cache)
+    ext_logits = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    (tok_ext, _), _ = drive(lambda: qwen2.prefill_extend(model.lm, block, EXTEND_ROWS, cache,
+                                                         step_logits=ext_logits),
+                            {"vit_attention": 0, "flash_attention": 28},
+                            f"prefill_extend of {EXTEND_ROWS} rows at q_offset {s_main}")
+    ev[1].record()
+    check(cache.length == s_ext, f"cache length {cache.length} after the extension")
+    del cache
+    full_cache = qwen2.KVCache.create(model.cfg.lm, 1, s_ext + 8, embeds.dtype, dev)
+    ref_logits = []
+    ev[2].record()
+    tok_full, _, _ = qwen2.decode_prefill(
+        model.lm, torch.cat([embeds, block], dim=1),
+        torch.ones(1, s_ext, dtype=torch.bool, device=dev), full_cache,
+        step_logits=ref_logits)
+    ev[3].record()
+    sync()
+    del full_cache
+    a, b = ext_logits[0][0].float(), ref_logits[0][0].float()
+    rel = ((a - b).norm() / b.norm()).item()
+    check(math.isfinite(rel) and rel <= 2e-2,
+          f"prefill_extend logits {rel} relative from one prefill of {s_ext} tokens")
+    ext_rule = margin_rule([int(tok_full[0])], [b], [int(tok_ext[0])], [a], eos,
+                           "prefill_extend's token vs one full prefill")
+    extend = {"prompt_tokens": s_main, "block_rows": EXTEND_ROWS, "q_offset": s_main,
+              "logits_rel_err": rel, "logits_max_abs_diff": (a - b).abs().max().item(),
+              "token_equal": int(tok_ext[0]) == int(tok_full[0]), **ext_rule,
+              "extend_ms": ev[0].elapsed_time(ev[1]),
+              "full_prefill_ms": ev[2].elapsed_time(ev[3])}
+    print(json.dumps({"phase": "4d", "check": "prefill_extend", **extend}))
+    del a, b, ext_logits, ref_logits
+
+    # (c) sampling and the streams
+    sampled, wall_s1 = drive(lambda: model.generate(frames, QUESTION, n_new, seed=seed,
+                                                    **SAMPLING), answer, "sampled generate")
+    again, _ = drive(lambda: model.generate(frames, QUESTION, n_new, seed=seed, **SAMPLING),
+                     answer, "sampled generate again")
+    check(again == sampled, f"sampled answers at one seed differ: {sampled!r} {again!r}")
+    streamed, _ = drive(lambda: "".join(model.generate_stream(frames, QUESTION, n_new,
+                                                              seed=seed, **SAMPLING)),
+                        answer, "sampled stream")
+    check(streamed == sampled, f"the sampled stream {streamed!r} is not {sampled!r}")
+    greedy_streamed, _ = drive(lambda: "".join(model.generate_stream(frames, QUESTION,
+                                                                     n_new)),
+                               answer, "greedy stream")
+    check(greedy_streamed == greedy_answer,
+          f"the greedy stream {greedy_streamed!r} is not {greedy_answer!r}")
+    top1, _ = drive(lambda: model.generate(frames, QUESTION, n_new, temperature=0.7,
+                                           top_p=1e-6, seed=seed),
+                    answer, "top_p=1e-6 generate")
+    # greedy and the vanishing nucleus through the calls generate makes: the
+    # sampler's top-1 takes the higher index of an exact tie, argmax the lower
+    embeds, _, _ = model._prepare_generate(frames, QUESTION, n_new, None)
+    valid = torch.ones(1, s_main, dtype=torch.bool, device=dev)
+    g_clock, s_clock = LogitClock(), LogitClock()
+    g_toks, g_n = qwen2.greedy_decode(
+        model.lm, embeds, valid, qwen2.KVCache.create(model.cfg.lm, 1, s_main + n_new + 8,
+                                                      embeds.dtype, dev),
+        n_new, step_logits=g_clock)
+    s_toks, s_n = qwen2.sample_decode(
+        model.lm, embeds, valid, qwen2.KVCache.create(model.cfg.lm, 1, s_main + n_new + 8,
+                                                      embeds.dtype, dev),
+        n_new, 0.7, 1e-6, generator=model._generator(seed), step_logits=s_clock)
+    g_toks, s_toks = g_toks[:g_n].tolist(), s_toks[:s_n].tolist()
+    check(model.decode([t for t in s_toks if t != eos]) == top1,
+          "top_p=1e-6 through sample_decode answers otherwise than generate")
+    top1_rule = margin_rule(g_toks, g_clock.logits, s_toks, s_clock.logits, eos,
+                            "top_p=1e-6 vs greedy")
+    del g_clock, s_clock
+    # the chunked loop's steps beside greedy_decode's, on the same prompt
+    _, _, greedy_steps = timed_greedy_decode(model, embeds, n_new)
+    stream_clock = LogitClock()
+    for _ in qwen2.greedy_decode_stream(
+            model.lm, embeds, valid, qwen2.KVCache.create(model.cfg.lm, 1,
+                                                          s_main + n_new + 8,
+                                                          embeds.dtype, dev),
+            n_new, chunk=8, step_logits=stream_clock):
+        pass
+    sync()
+    chunk_steps = stream_clock.step_ms()
+    del stream_clock
+    sampling = {"settings": SAMPLING, "seed": seed, "sampled_head": sampled.split()[:4],
+                "sampled_wall_s": wall_s1, "stream_equal": True,
+                "greedy_stream_equal": True, "top_p_1e-6_equal_greedy": top1 == greedy_answer,
+                "top_p_1e-6_rule": top1_rule,
+                "greedy_decode_ms_per_step": float(np.mean(greedy_steps)),
+                "chunked_ms_per_step": float(np.mean(chunk_steps)),
+                "greedy_decode_steps": len(greedy_steps),
+                "chunked_steps": len(chunk_steps)}
+    print(json.dumps({"phase": "4d", "check": "sampling_streams", **sampling}))
+
+    # (d) prompt-lookup speculative decode
+    spec_model = dc.replace(model, speculative=True)
+    spec_answer, wall_spec = drive(lambda: spec_model.generate(frames, QUESTION, n_new),
+                                   answer, "speculative generate")
+    from tspo_tpu_torch.models.llava_video import tokenize_with_image
+    ids = tokenize_with_image(model._prompt(QUESTION), model.encode, model.bos_token_id)
+    lookup, lvalid = qwen2.build_spec_lookup(t for t in ids if t >= 0)
+    d = min(spec_model.draft_len, model.cfg.max_context - s_main - n_new)
+    spec_clock = LogitClock()
+    sp_toks, sp_n, n_fwd = qwen2.greedy_decode_speculative(
+        model.lm, embeds, valid, qwen2.KVCache.create(model.cfg.lm, 1, s_main + n_new + d + 10,
+                                                      embeds.dtype, dev),
+        n_new, lookup, lvalid, draft_len=d, step_logits=spec_clock)
+    sync()
+    sp_toks = sp_toks[:sp_n].tolist()
+    check(model.decode([t for t in sp_toks if t != eos]) == spec_answer,
+          "speculative decode through its call answers otherwise than generate")
+    g_clock = LogitClock()
+    g_toks, g_n = qwen2.greedy_decode(
+        model.lm, embeds, valid, qwen2.KVCache.create(model.cfg.lm, 1, s_main + n_new + 8,
+                                                      embeds.dtype, dev),
+        n_new, step_logits=g_clock)
+    sync()
+    g_toks = g_toks[:g_n].tolist()
+    spec_rule = margin_rule(g_toks, g_clock.logits, sp_toks, spec_clock.logits, eos,
+                            "speculative vs greedy")
+
+    def decode_ms(clock):
+        return clock.events[0].elapsed_time(clock.events[-1])
+    spec = {"draft_len": d, "equal": spec_answer == greedy_answer, **spec_rule,
+            "tokens": sp_n, "verify_forwards": n_fwd, "greedy_decode_forwards": g_n,
+            "tokens_per_verify_forward": sp_n / max(n_fwd, 1),
+            "speculative_decode_ms_per_token": decode_ms(spec_clock) / max(sp_n - 1, 1),
+            "greedy_decode_ms_per_token": decode_ms(g_clock) / max(g_n - 1, 1),
+            "speculative_generate_wall_s": wall_spec}
+    print(json.dumps({"phase": "4d", "check": "speculative", **spec}))
+    del g_clock, spec_clock, embeds
+    torch.cuda.empty_cache()
+    total = dict(total)
+    print(json.dumps({"phase": "4d", "summary": "conversation", "launches": total,
+                      "phase_wall_s": time.perf_counter() - t_phase}))
+    return total
+
+
 def phase_bench(seed: int, rows: dict):
     """The variant bench at full shape: launches and parity of every
     variant; fills each kernel row's launches."""
@@ -1695,20 +2008,23 @@ def main(argv=None):
     phase_parity_scorer(args.seed)
     phase_parity_llava(args.seed)
     n_score, idx, frames, scorer = phase_main_scoring(args.seed)
-    answer, model = phase_main_answer(args.seed, frames, idx, s_main)
+    answer, model, selected, greedy_answer = phase_main_answer(args.seed, frames, idx,
+                                                               s_main)
     train = phase_main_train(args.seed, scorer, model)
     evaluate = phase_main_harness(args.seed, scorer, model)
-    del scorer, model
+    conversation = phase_main_conversation(args.seed, model, selected, greedy_answer,
+                                           s_main)
+    del scorer, model, selected
     torch.cuda.empty_cache()
     vit_row["shapes"]["clip"]["launches"] = n_score
     vit_row["shapes"]["siglip"]["launches"] = answer["vit_attention"]
-    vit_row["launches"] = (n_score + answer["vit_attention"] + train["vit_attention"]
-                           + evaluate["vit_attention"])
-    flash_row["launches"] = (answer["flash_attention"] + train["flash_attention"]
-                             + evaluate["flash_attention"])
     for row in (vit_row, flash_row):
-        row["train"] = {"launches": train[row["name"]]}
-        row["evaluate"] = {"launches": evaluate[row["name"]]}
+        name = row["name"]
+        row["launches"] = (answer[name] + train[name] + evaluate[name]
+                           + conversation[name] + (n_score if name == "vit_attention" else 0))
+        row["train"] = {"launches": train[name]}
+        row["evaluate"] = {"launches": evaluate[name]}
+        row["conversation"] = {"launches": conversation[name]}
     phase_bench(args.seed, variant_rows)
     print(json.dumps({"kernels": [vit_row, flash_row]
                       + [variant_rows[r[0]] for r in VARIANT_ROWS]}))

@@ -6,7 +6,9 @@ both packages with the stub backbone, with a recording batching backbone at
 ``batch_size`` 1 and 2 (the same batched calls), and with the tiny fp32
 LLaVA of ``test_torch_llava_video.py`` at ``batch_size`` 2 (ragged
 ``generate_batch_multi`` in both); ``EgoSchema-ppl`` through the tiny
-LLaVA's ``loglikelihood`` likewise.  So do the degrade-to-single path of a
+LLaVA's ``loglikelihood`` likewise, and a two-round
+``generate_until_multi_round`` task through the tiny LLaVA's
+``generate_multi_round`` with a ``ConversationState`` a doc.  So do the degrade-to-single path of a
 failing batch, the shard merge, the response-cache resume, live scoring and
 a missing video's ``[error: ...]`` record.  The port's frames reach the
 backbone as numpy arrays from the producer thread, and an audio task with
@@ -213,3 +215,42 @@ def test_producer_hands_numpy_frames_to_the_backbone(videos):
                            max_frames_num=8, on_error="raise")
     assert seen == [np.ndarray, np.ndarray]
     assert dataclasses.is_dataclass(tharness.EvalResult)
+
+
+def _two_round_task(tasks):
+    """A ``generate_until_multi_round`` task of two rounds: the doc's
+    question, then a follow-up that quotes the first answer."""
+    def round_prompt(doc, r, responses, kwargs):
+        return doc["question"] if r == 0 else f"And after {responses[-1]}?"
+    return tasks.BenchmarkTask(
+        name="_two_rounds", doc_to_text=lambda doc, kw=None: doc["question"],
+        process_response=lambda doc, resp, rng=None: {"final": resp},
+        aggregate=lambda rs: {"n": len(rs)}, output_type="generate_until_multi_round",
+        num_rounds=2, round_prompt=round_prompt)
+
+
+def test_tiny_llava_multi_round_task_matches_jax(videos, monkeypatch):
+    """Each round's answer rides the conversation template in both packages
+    (``generate_multi_round`` with a per-doc state), not a plain-text
+    transcript: equal responses and ``rounds`` records.  The weights (seed
+    5) answer the second round differently from the two prompts, so a
+    transcript in place of the template shows."""
+    from tspo_tpu.eval import tasks as jtasks
+    from tspo_tpu_torch.eval import tasks as ttasks
+    sd = llava_state_dict(seed=5)
+    jax_model = jl.LLaVAVideoModel.from_torch_checkpoint(
+        sd, JCFG, dtype=jnp.float32, encode=_encode, decode=_decode, max_new_tokens=6)
+    port = tl.LLaVAVideoModel.from_torch_checkpoint(
+        sd, CFG, dtype=torch.float32, device="cpu", encode=_encode, decode=_decode,
+        batch_frames=8, max_new_tokens=6)
+    monkeypatch.setitem(jtasks.TASK_REGISTRY, "_two_rounds", _two_round_task(jtasks))
+    monkeypatch.setitem(ttasks.TASK_REGISTRY, "_two_rounds", _two_round_task(ttasks))
+    docs = [{"question_id": f"q{i}", "question": f"What moves in clip {i}?",
+             "video_path": f"v{i}.mp4", "frame_idx": [0, 5, 10, 15]} for i in range(2)]
+    kw = dict(video_root=videos, max_frames_num=4, on_error="raise",
+              request_type="generate_until_multi_round")
+    want = jharness.evaluate_task("_two_rounds", docs, jax_model, **kw)
+    got = tharness.evaluate_task("_two_rounds", docs, port, **kw)
+    _assert_equal(got, want)
+    assert [len(s["rounds"]) for s in got.samples] == [2, 2]
+    assert all(s["rounds"][1][0].startswith("And after ") for s in got.samples)

@@ -6,9 +6,11 @@ With ``--backbone stub --device cpu`` the port writes the JAX CLI's output
 files, ``<task>_rank<r>_<stamp>.json`` and its ``_samples.jsonl``, with the
 same task, metrics, count and sample records (the timestamp and
 ``elapsed_s`` aside; the port's config also has ``--device``), prints the
-same table, and runs a ``--config`` sweep alike.  Each option the port does
-not have yet raises ``NotImplementedError`` naming its ROADMAP.md item; the
-rule-only defaults of the judged families run without ``--judge``."""
+same table, and runs a ``--config`` sweep alike.  ``--speculative`` on the
+synthetic tiny LLaVA-Video checkpoint (fp32 in both packages) gives the JAX
+CLI's samples and the port's own non-speculative ones.  Each option the port
+does not have yet raises ``NotImplementedError`` naming its ROADMAP.md item;
+the rule-only defaults of the judged families run without ``--judge``."""
 
 import json
 
@@ -90,7 +92,8 @@ def test_config_sweep_matches_jax(docs_json, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--coordinator", "localhost:1234"], 6), (["--num-processes", "2"], 6),
-    (["--process-id", "0"], 6), (["--speculative"], 3), (["--quantize-backbone"], 5),
+    (["--process-id", "0"], 6), (["--speculative", "--quantize-backbone"], 5),
+    (["--quantize-backbone"], 5),
     (["--wandb-args", "project=tspo"], 7), (["--judge", "dummy"], 8),
     (["--megabench-submission", "sub.json"], 8),
     (["--task", "ActivityNet-QA"], 8), (["--task", "MEGABench-core"], 8),
@@ -105,6 +108,37 @@ def test_unported_options_raise_naming_their_item(docs_json, tmp_path, flags, it
     assert not (tmp_path / "out").exists()
     with pytest.raises(SystemExit):              # the port has no qwen2_5_vl backbone
         tcli.build_parser().parse_args(["--backbone", "qwen2_5_vl"])
+
+
+def test_speculative_llava_run_matches_jax_and_plain(docs_json, tmp_path, monkeypatch,
+                                                    capsys):
+    """``--backbone llava_video --speculative`` on the synthetic tiny
+    checkpoint: the port's samples equal the JAX CLI's and the port's own
+    without ``--speculative`` (speculation is greedy-exact)."""
+    pytest.importorskip("safetensors")
+    import jax.numpy as jnp
+    from scripts.make_synthetic_assets import build_backbone
+    from tspo_tpu_torch.cli import common as tcommon
+    path, videos = docs_json
+    backbone = build_backbone(str(tmp_path / "backbone"))
+    monkeypatch.setattr(jcommon, "enable_compilation_cache", lambda: None)
+    jload, tload = jcommon._load_llava_dir, tcommon._load_llava_dir
+    monkeypatch.setattr(jcommon, "_load_llava_dir",
+                        lambda p, cfg, **kw: jload(p, cfg, **{**kw, "dtype": jnp.float32}))
+    monkeypatch.setattr(tcommon, "_load_llava_dir",
+                        lambda p, cfg, **kw: tload(p, cfg, **{**kw, "dtype": torch.float32}))
+    argv = ["--task", "VideoMME", "--frame-idx-json", path, "--video-root", videos,
+            "--backbone", "llava_video", "--backbone-path", backbone,
+            "--max-frames-num", "8", "--limit", "2"]
+    jcli.main(argv + ["--speculative", "--output", str(tmp_path / "jax")])
+    tcli.main(argv + ["--speculative", "--output", str(tmp_path / "spec"),
+                      "--device", "cpu"])
+    tcli.main(argv + ["--output", str(tmp_path / "plain"), "--device", "cpu"])
+    capsys.readouterr()
+    want, spec, plain = (_outputs(tmp_path / n) for n in ("jax", "spec", "plain"))
+    assert spec["samples"] == want["samples"] == plain["samples"]
+    assert spec["config"]["speculative"] and not plain["config"]["speculative"]
+    assert all(s["response"] for s in spec["samples"]) and len(spec["samples"]) == 2
 
 
 def test_rule_only_judged_families_run_without_judge(docs_json, tmp_path):

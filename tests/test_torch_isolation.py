@@ -35,7 +35,9 @@ assert {"tspo_tpu_torch.train.trainer", "tspo_tpu_torch.train.grpo",
         "tspo_tpu_torch.eval.caching", "tspo_tpu_torch.eval.text_metrics",
         "tspo_tpu_torch.eval.llm_judge", "tspo_tpu_torch.eval.more_tasks",
         "tspo_tpu_torch.eval.plm_videobench", "tspo_tpu_torch.eval.funqa",
-        "tspo_tpu_torch.cli.evaluate"} <= set(names)
+        "tspo_tpu_torch.cli.evaluate", "tspo_tpu_torch.models.qwen2",
+        "tspo_tpu_torch.models.llava_video",
+        "tspo_tpu_torch.models.conversation"} <= set(names)
 print(len(names), bad)
 """
 
@@ -140,6 +142,30 @@ def test_llava_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
     assert m.device.type == "cpu"
     with pytest.raises(ValueError, match="unknown backbone"):
         load_backbone("qwen2_5_vl", None)
+
+
+def test_decode_features_keep_to_the_models_device(monkeypatch):
+    """The sampler's generator, a conversation's cache and its video tokens
+    live on the model's device (the CPU only because the caller asked for
+    it), and ``load_backbone(speculative=True)`` reaches the model."""
+    from tspo_tpu_torch.cli import common
+    from tspo_tpu_torch.models.llava_video import LLaVAVideoConfig, LLaVAVideoModel
+    cfg = LLaVAVideoConfig.tiny()
+    m = LLaVAVideoModel.random_init(torch.Generator().manual_seed(0), cfg,
+                                    dtype=torch.float32, device="cpu",
+                                    encode=lambda s: [ord(c) % 500 for c in s],
+                                    decode=lambda t: " ".join(map(str, t)))
+    assert m._generator(3).device == m.device
+    state = m.new_conversation_state()
+    m.generate_multi_round(np.zeros((1, 32, 32, 3), np.uint8), [("q", None)],
+                           max_new_tokens=2, state=state)
+    assert state.cache.k.device == state.video_tokens.device == m.device
+    monkeypatch.setattr(common, "_load_llava_dir", lambda p, cfg, **kw: m)
+    import transformers
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        lambda *a, **k: type("T", (), {"bos_token_id": None})())
+    assert common.load_backbone("llava_video", "ckpt", device="cpu",
+                                speculative=True).speculative
 
 
 def test_precompute_takes_the_scorers_device(tmp_path):

@@ -176,14 +176,18 @@ def test_jax_tree_crosses_through_interop():
 
 
 def test_queued_features_raise_not_implemented(models):
+    """The audio track is still queued (ROADMAP Queue 1 item 5), on generate
+    and on its stream; sampling and speculative decode run (their parity is
+    test_torch_llava_decode.py's)."""
     _, port = models
     frames = _frames(1, seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.generate(frames, "q", temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md \\(Queue 1 item 5\\)"):
         port.generate(frames, "q", audio=np.zeros(16000, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(port, speculative=True).generate(frames, "q")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md \\(Queue 1 item 5\\)"):
+        next(port.generate_stream(frames, "q", audio=np.zeros(16000, np.float32)))
+    assert port.generate(frames, "q", temperature=0.7, seed=1, max_new_tokens=2)
+    assert dataclasses.replace(port, speculative=True).generate(frames, "q") == \
+        port.generate(frames, "q")
 
 
 def test_config_from_hf_matches_jax():

@@ -133,11 +133,13 @@ def stub_qwen_tokenizer(vocab: int = 151643):
 
 def load_backbone(kind: str, model_path: str | None = None, *, device="cuda",
                   dtype=None, conv_template: str | None = None,
-                  max_frames_num: int = 64):
+                  speculative: bool = False, max_frames_num: int = 64):
     """Backbone for answering: ``"stub"`` (answers "A", for tests) or
     ``"llava_video"`` from a LLaVA-Video-Qwen2 checkpoint directory
     (safetensors or pytorch_model*.bin in the llava_qwen layout, config.json,
     and an HF tokenizer), on ``device`` in ``dtype`` (default bf16).
+    ``speculative`` turns on prompt-lookup speculative decoding for the
+    llava_video backbone's ``generate`` (the same greedy answers).
 
     A path naming "vicuna" or "yi" is an old vicuna/yi checkpoint, as in the
     reference adapter (llava_vid_tspo.py:94, 159-174): template ``vicuna_v1``
@@ -177,6 +179,7 @@ def load_backbone(kind: str, model_path: str | None = None, *, device="cuda",
     model.decode = lambda toks: tok.decode(toks, skip_special_tokens=True)
     model.conv_template = conv_template or "qwen_1_5"
     model.bos_token_id = tok.bos_token_id
+    model.speculative = speculative
     return model
 
 

@@ -10,10 +10,11 @@ Baseline (uniform sampling, no TSPO): add --uniform.  ``--batch B`` answers
 B consecutive questions in one ragged batched decode.
 
 Runs on the card (``--device cuda``, the default) and raises without one
-unless given ``--device cpu``.  The JAX CLI's multi-host options, speculative
-decoding, the int8 backbone, W&B logging, ``--judge`` and the LLM-judged task
-families are accepted by the parser and raise: they are not ported yet
-(ROADMAP.md).  The judge-free defaults those families register at import
+unless given ``--device cpu``.  ``--speculative`` answers through prompt-lookup
+speculative decoding (the same greedy answers in fewer forward passes).  The
+JAX CLI's multi-host options, the int8 backbone, W&B logging, ``--judge`` and
+the LLM-judged task families are accepted by the parser and raise: they are
+not ported yet (ROADMAP.md).  The judge-free defaults those families register at import
 time (TempCompass, TOMATO, VITATECS, PLM-fgqa, PLM-rtloc) run.  The output
 JSON and JSONL files have the JAX CLI's names and keys.
 """
@@ -45,7 +46,9 @@ def build_parser():
     p.add_argument("--backbone", default="stub", choices=["stub", "llava_video"])
     p.add_argument("--backbone-path", default=None)
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported)")
+                   help="prompt-lookup speculative decoding on the llava_video "
+                        "backbone (exact greedy, fewer forward passes; "
+                        "models/qwen2.greedy_decode_speculative)")
     p.add_argument("--quantize-backbone", action="store_true",
                    help="weight-only int8 decoder (not ported)")
     p.add_argument("--max-frames-num", type=int, default=64)
@@ -156,8 +159,6 @@ def _refuse_unported(args):
     if args.coordinator or args.num_processes is not None \
             or args.process_id is not None:
         raise NotImplementedError(f"multi-host evaluation is {_QUEUE.format(6)}")
-    if args.speculative:
-        raise NotImplementedError(f"speculative decoding is {_QUEUE.format(3)}")
     if args.quantize_backbone:
         raise NotImplementedError(f"the int8 backbone is {_QUEUE.format(5)}")
     if args.wandb_args is not None:
@@ -210,6 +211,7 @@ def _run(args):
     # derived from the frame budget — llava_vid_tspo.py:159-174)
     backbone = load_backbone(args.backbone, args.backbone_path,
                              device=args.device, conv_template=args.conv_template,
+                             speculative=args.speculative,
                              max_frames_num=args.max_frames_num)
     scorer = None
     if args.live_model_path:

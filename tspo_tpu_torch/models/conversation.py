@@ -2,9 +2,9 @@
 
 The port's own copy of ``tspo_tpu/models/conversation.py`` (jax-free there
 too; the port imports nothing of the JAX package): the templates,
-``build_prompt`` and ``vicuna_rope_overrides``, rendering the same prompts
-and rope scaling as the JAX package.  The multi-round prompt comes with the
-feature that uses it (ROADMAP.md).
+``build_prompt``, the multi-round ``build_prompt_multi``, ``stop_str`` and
+``vicuna_rope_overrides``, rendering the same prompts and rope scaling as
+the JAX package.
 
 Rebuilds the *active* slice of the reference's ``llava/conversation.py``
 (the Conversation dataclass + get_prompt separator styles, :25-160, and the
@@ -39,6 +39,13 @@ class ConvTemplate:
     sep_style: str        # "two" | "chatml" | "mpt" | "llama_2" | "llama_3"
     sep: str = ""
     sep2: str = ""
+
+    @property
+    def stop_str(self) -> str:
+        """Generation stop keyword, the reference adapter's rule
+        (llava_vid_tspo.py:536): sep2 for the TWO style, sep otherwise, so
+        mistral_instruct gets "" and llama_2 "<s>" (they stop on EOS only)."""
+        return self.sep2 if self.sep_style == "two" else self.sep
 
     def render(self, user_message: str, assistant_message: str | None = None
                ) -> str:
@@ -181,6 +188,24 @@ def build_prompt(question: str, template: str = "qwen_1_5",
     q = (DEFAULT_IMAGE_TOKEN + "\n" + question) if add_image_token \
         else question
     return get_template(template).render(q, assistant)
+
+
+def build_prompt_multi(turns, template: str = "qwen_1_5",
+                       add_image_token: bool = True) -> str:
+    """Multi-round prompt: ``turns`` is [(question, answer|None), ...] with
+    the last answer None (the generation stub).  The <image> token rides the
+    FIRST user turn only: the video is encoded and spliced once, as in the
+    single-turn adapters."""
+    rendered = []
+    for i, (q, a) in enumerate(turns):
+        if i == 0 and add_image_token:
+            q = DEFAULT_IMAGE_TOKEN + "\n" + q
+        rendered.append((q, a))
+    return get_template(template).render_turns(rendered)
+
+
+def stop_str(template: str = "qwen_1_5") -> str:
+    return get_template(template).stop_str
 
 
 def vicuna_rope_overrides(max_frames_num: int,

@@ -14,19 +14,24 @@ pooled afterwards.  The parameters live in one ``nn.Module``
 (:class:`LlavaQwenNet`); :meth:`LLaVAVideoModel.from_torch_checkpoint` reads
 the llava_qwen state-dict layout.
 
-Besides ``generate``: batched greedy generation over ragged rows
-(``generate_batch_multi``, and ``generate_batch`` for one question), and
-teacher-forced scoring of a continuation (``loglikelihood``,
-``continuation_logprobs``).
+Besides ``generate`` (greedy; nucleus sampling at ``temperature > 0`` with a
+``seed``; prompt-lookup speculative decode with ``speculative=True``):
+its stream ``generate_stream``; multi-round conversations
+(``generate_multi_round`` and its stream) that reuse the conversation's
+prefix K/V through a :class:`ConversationState`, so a later round prefills
+only its new turn and the video encodes once; batched greedy generation
+over ragged rows (``generate_batch_multi``, and ``generate_batch`` for one
+question); and teacher-forced scoring of a continuation
+(``loglikelihood``, ``continuation_logprobs``).
 
-Out of scope here, queued in ROADMAP.md: sampled, streamed and speculative
-generation, the audio track, multi-round conversations with prefix reuse and
-int8 weights.  Asking for one of them raises ``NotImplementedError``; nothing
-runs another path instead.
+Out of scope here, queued in ROADMAP.md: the audio track and int8 weights.
+Asking for one of them raises ``NotImplementedError``; nothing runs another
+path instead.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from . import qwen2
 from .qwen2 import (KVCache, Qwen2Config, Qwen2Model, embed_tokens, greedy_decode,
                     lm_logits, qwen2_forward)
 from .siglip import SigLIPConfig, SigLIPVisionTower, siglip_preprocess
@@ -47,7 +53,12 @@ DEFAULT_AUDIO_TOKEN = "<audio>"
 
 QWEN15_SYSTEM = "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
 
-_QUEUED = "not ported yet; queued in ROADMAP.md (Queue 1, left from the second slice)"
+_QUEUED = "not ported yet; queued in ROADMAP.md (Queue 1 item 5)"
+# the capacity the stateful rounds budget for the last extension chunk's
+# padding (chunks pad to 64 or 256 rows)
+EXT_PAD = 256
+_SAMPLED_STATE = ("sampled conversation rounds don't ride prefix-KV state: pass "
+                  "state=None (full re-prefill) or temperature=0")
 
 
 @dataclass(frozen=True)
@@ -238,6 +249,14 @@ def _empty_net(cfg: LLaVAVideoConfig, dtype, device) -> LlavaQwenNet:
     return net.to(dtype=dtype).to_empty(device=device).eval()
 
 
+def _sampling_seed(seed: int | None) -> int:
+    """No seed means a fresh draw per call (repeat sampling must differ, as
+    in OpenAI/HF do_sample); an explicit seed stays deterministic."""
+    if seed is None:
+        return int.from_bytes(os.urandom(4), "little")
+    return int(seed)
+
+
 @dataclass
 class LLaVAVideoModel:
     """Host orchestrator: vision encode (chunked), prompt splice, greedy
@@ -255,7 +274,10 @@ class LLaVAVideoModel:
     conv_template: str = "qwen_1_5"
     # BOS id for tokenize_with_image (vicuna/llama tokenizers emit one)
     bos_token_id: int | None = None
+    # prompt-lookup speculative decoding on generate (qwen2's
+    # greedy_decode_speculative): the greedy tokens in fewer forward passes
     speculative: bool = False
+    draft_len: int = 8
 
     @property
     def device(self) -> torch.device:
@@ -351,32 +373,267 @@ class LLaVAVideoModel:
                 "into (fewer frames, or raise max_context)")
         return embeds, input_ids, min(max_new, headroom)
 
+    def _cache(self, max_len: int, dtype) -> KVCache:
+        return KVCache.create(self.cfg.lm, 1, max_len, dtype, self.device)
+
+    def _generator(self, seed: int | None) -> torch.Generator:
+        """The sampler's random stream: a generator on the model's device."""
+        return torch.Generator(device=self.device).manual_seed(_sampling_seed(seed))
+
     @torch.inference_mode()
     def generate(self, frames: np.ndarray, question: str,
                  max_new_tokens: int | None = None, prompt: str | None = None,
                  audio: np.ndarray | None = None, temperature: float = 0.0,
-                 top_p: float = 1.0, seed: int | None = None) -> str:
-        """Greedy answer to ``question`` about ``frames`` [T, H, W, 3] uint8:
-        vision encode, splice, Qwen2 prefill and greedy decode; returns the
-        decoded text without EOS tokens."""
-        if temperature and temperature > 0:
-            raise NotImplementedError(f"sampled generation (temperature > 0) "
-                                      f"is {_QUEUED}")
+                 top_p: float = 1.0, seed: int | None = None,
+                 step_logits: list | None = None) -> str:
+        """Answer to ``question`` about ``frames`` [T, H, W, 3] uint8: vision
+        encode, splice, Qwen2 prefill and decode; returns the decoded text
+        without EOS tokens.  Greedy at ``temperature`` 0 (the video
+        benchmarks' setting); ``temperature > 0`` samples the nucleus
+        ``top_p`` with Gumbel draws from a generator on the model's device
+        seeded by ``seed`` (None: a fresh seed a call).  With ``speculative``
+        the greedy tokens come from prompt-lookup speculation, its draft
+        clamped to the cache headroom and plain greedy decode at none, the
+        JAX package's rule.  ``step_logits``, when given (a list, or any
+        object with ``append``), gets the fp32 [1, V] logits of each step."""
         if audio is not None:
             raise NotImplementedError(f"the audio track is {_QUEUED}")
-        if self.speculative:
-            raise NotImplementedError(f"speculative decoding is {_QUEUED}")
-        embeds, _, max_new = self._prepare_generate(frames, question,
-                                                    max_new_tokens, prompt)
-        S = embeds.shape[1]
-        max_len = min(self.cfg.max_context, S + max_new + 8)
-        cache = KVCache.create(self.cfg.lm, 1, max_len, embeds.dtype,
-                               self.device)
+        embeds, input_ids, max_new = self._prepare_generate(frames, question,
+                                                            max_new_tokens, prompt)
+        S, ctx = embeds.shape[1], self.cfg.max_context
         valid = torch.ones(1, S, dtype=torch.bool, device=self.device)
-        toks, n = greedy_decode(self.lm, embeds, valid, cache, max_new)
+        d = min(self.draft_len, ctx - S - max_new)
+        if temperature and temperature > 0:
+            toks, n = qwen2.sample_decode(
+                self.lm, embeds, valid, self._cache(min(ctx, S + max_new + 8), embeds.dtype),
+                max_new, temperature, top_p, generator=self._generator(seed),
+                step_logits=step_logits)
+        elif self.speculative and d >= 1:
+            lookup, lvalid = qwen2.build_spec_lookup(t for t in input_ids if t >= 0)
+            toks, n, _ = qwen2.greedy_decode_speculative(
+                self.lm, embeds, valid,
+                self._cache(min(ctx, S + max_new + d + 10), embeds.dtype),
+                max_new, lookup, lvalid, draft_len=d, step_logits=step_logits)
+        else:
+            toks, n = greedy_decode(self.lm, embeds, valid,
+                                    self._cache(min(ctx, S + max_new + 8), embeds.dtype),
+                                    max_new, step_logits=step_logits)
         toks = toks[:n].cpu().numpy()
         toks = toks[toks != self.cfg.lm.eos_token_id]
         return self.decode(toks.tolist())
+
+    def generate_stream(self, frames: np.ndarray, question: str,
+                        max_new_tokens: int | None = None,
+                        prompt: str | None = None,
+                        audio: np.ndarray | None = None, chunk: int = 8,
+                        temperature: float = 0.0, top_p: float = 1.0,
+                        seed: int | None = None):
+        """Streaming :meth:`generate`: yields text deltas whose concatenation
+        equals ``generate``'s answer at the same arguments (greedy, or
+        sampled at the same seed), ``chunk`` decode steps a block; each delta
+        decodes the whole emitted prefix, so BPE merges across blocks render
+        as in one decode.  Speculation does not apply to the stream."""
+        if audio is not None:
+            raise NotImplementedError(f"the audio track is {_QUEUED}")
+        embeds, _, max_new = self._prepare_generate(frames, question,
+                                                    max_new_tokens, prompt)
+        S = embeds.shape[1]
+        valid = torch.ones(1, S, dtype=torch.bool, device=self.device)
+        # not clamped to max_context: the last chunk's steps past max_new
+        # (the JAX package runs whole chunks) need real slots
+        cache = self._cache(S + -(-max_new // chunk) * chunk, embeds.dtype)
+        if temperature and temperature > 0:
+            blocks = qwen2.sample_decode_stream(
+                self.lm, embeds, valid, cache, max_new, temperature, top_p,
+                chunk=chunk, generator=self._generator(seed))
+        else:
+            blocks = qwen2.greedy_decode_stream(self.lm, embeds, valid, cache,
+                                                max_new, chunk=chunk)
+        yield from qwen2.stream_detokenize(blocks, self.decode,
+                                           self.cfg.lm.eos_token_id)
+
+    # -- multi-round conversations ---------------------------------------------
+
+    def render_chat_prompt(self, turns) -> str:
+        """The prompt :meth:`generate_multi_round` renders for ``turns``, in
+        the form ``continuation_logprobs``'s ``prompt`` takes."""
+        from .conversation import build_prompt_multi
+        return build_prompt_multi(turns, self.conv_template)
+
+    def new_conversation_state(self, headroom: int = 2048) -> "ConversationState":
+        """A fresh prefix-K/V state for :meth:`generate_multi_round`.
+        ``headroom``: cache slots beyond the first round's need, bounding the
+        follow-up turns that fit before a full re-prefill into a larger
+        cache."""
+        return ConversationState(headroom)
+
+    def generate_multi_round(self, frames: np.ndarray, turns,
+                             max_new_tokens: int | None = None,
+                             state: "ConversationState | None" = None,
+                             temperature: float = 0.0, top_p: float = 1.0,
+                             seed: int | None = None,
+                             step_logits: list | None = None) -> str:
+        """Multi-round chat over one video: ``turns`` is [(question, answer),
+        ..., (question, None)]; earlier pairs ride the conversation template
+        as context and the video splices once, at the first turn's <image>
+        (the lmms ``generate_until_multi_round`` request).
+
+        Without ``state`` each round is one :meth:`generate` of the whole
+        rendered conversation (re-encode and re-prefill).  With ``state``
+        (:meth:`new_conversation_state`) the longest token prefix the state
+        covers is reused: only the new tokens are prefilled, in dense chunks
+        of at most 256 (``prefill_extend``), decode continues in place, and
+        the answer's own K/V stays covered for the next round; the video
+        encodes once.  Token-exact vs the stateless path.  Sampled rounds
+        take no state (``ValueError``).  ``step_logits`` gets the fp32
+        logits of each step, as in :meth:`generate`."""
+        prompt = self.render_chat_prompt(turns)
+        if temperature and temperature > 0:
+            if state is not None:
+                raise ValueError(_SAMPLED_STATE)
+            return self.generate(frames, "", max_new_tokens=max_new_tokens,
+                                 prompt=prompt, temperature=temperature,
+                                 top_p=top_p, seed=seed, step_logits=step_logits)
+        if state is None:
+            return self.generate(frames, "", max_new_tokens=max_new_tokens,
+                                 prompt=prompt, step_logits=step_logits)
+        ids, total_e, first_tok, cache, CH, max_new = self._multi_round_prefill(
+            frames, prompt, max_new_tokens, state, step_logits=step_logits)
+        toks, cache = qwen2.greedy_decode_continue(self.lm, first_tok, cache,
+                                                   max_new, chunk=CH,
+                                                   step_logits=step_logits)
+        self._commit_conversation(state, ids, total_e, toks, cache)
+        return self.decode([int(t) for t in toks])
+
+    def generate_multi_round_stream(self, frames, turns,
+                                    max_new_tokens: int | None = None,
+                                    state: "ConversationState | None" = None,
+                                    chunk: int = 8, temperature: float = 0.0,
+                                    top_p: float = 1.0, seed: int | None = None):
+        """Streaming :meth:`generate_multi_round`: text deltas joining to the
+        non-stream answer.  With ``state`` the round commits only once the
+        stream is consumed to its end: an abandoned stream leaves the state
+        checked out (no cache), and the next round re-prefills in full."""
+        prompt = self.render_chat_prompt(turns)
+        if temperature and temperature > 0:
+            if state is not None:
+                raise ValueError(_SAMPLED_STATE)
+            yield from self.generate_stream(frames, "", max_new_tokens=max_new_tokens,
+                                            prompt=prompt, chunk=chunk,
+                                            temperature=temperature, top_p=top_p,
+                                            seed=seed)
+            return
+        if state is None:
+            yield from self.generate_stream(frames, "", max_new_tokens=max_new_tokens,
+                                            prompt=prompt, chunk=chunk)
+            return
+        ids, total_e, first_tok, cache, CH, max_new = self._multi_round_prefill(
+            frames, prompt, max_new_tokens, state, chunk=chunk)
+        final: dict = {}
+        blocks = qwen2.greedy_decode_continue_stream(self.lm, first_tok, cache,
+                                                     max_new, chunk=CH, final=final)
+        yield from qwen2.stream_detokenize(blocks, self.decode,
+                                           self.cfg.lm.eos_token_id)
+        for _ in blocks:    # stream_detokenize stops at the all-EOS block;
+            pass            # drain it so ``final`` fills (no device work left)
+        self._commit_conversation(state, ids, total_e, final["tokens"],
+                                  final["cache"])
+
+    def _commit_conversation(self, state: "ConversationState", ids, total_e: int,
+                             toks, cache: KVCache) -> None:
+        """Write a finished round back into the state: the answer's own
+        decode K/V stays covered for the next round."""
+        cache.length = total_e + len(toks)
+        state.cache = cache
+        state.ids = list(ids) + [int(t) for t in toks]
+        state.covered = total_e + len(toks)
+
+    @torch.inference_mode()
+    def _multi_round_prefill(self, frames, prompt: str, max_new_tokens,
+                             state: "ConversationState", chunk: int = 32,
+                             step_logits: list | None = None):
+        """The front half of the stateful rounds: prefix match and
+        incremental prefill.  Returns (ids, total_e, first_tok, cache, CH,
+        max_new) with the cache checked OUT of the state, so an exception or
+        an abandoned stream before the commit leaves the state without a
+        cache (a full re-prefill next round).  ``chunk`` is the decode chunk
+        the capacity is budgeted for; ``step_logits`` gets the fp32 logits
+        ``first_tok`` was chosen from."""
+        if self.encode is None or self.decode is None:
+            raise ValueError("needs encode/decode tokenizer callables")
+        max_new = self.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        D = self.cfg.lm.hidden_size
+        dtype = self.lm.model.embed_tokens.weight.dtype
+        ids = tokenize_with_image(prompt, self.encode, self.bos_token_id)
+        if state.video_tokens is None:
+            state.video_tokens = (
+                self.encode_video(frames) if frames is not None and len(frames)
+                else torch.zeros((0, D), dtype=dtype, device=self.device))
+        n_vid = int(state.video_tokens.shape[0])
+        sent = ids.index(IMAGE_TOKEN_INDEX) if IMAGE_TOKEN_INDEX in ids else None
+
+        def expand(i):            # id index -> embedding index
+            return i + (n_vid - 1) if sent is not None and sent < i else i
+
+        total_e = expand(len(ids))
+        # the generation budget is clamped to the context left, as in
+        # generate; only a full context is refused
+        headroom = self.cfg.max_context - total_e
+        if headroom < 1:
+            raise ValueError(
+                f"conversation is {total_e} tokens but max_context="
+                f"{self.cfg.max_context}: no cache slot left to generate "
+                "into (fewer frames/rounds, or raise max_context)")
+        max_new = min(max_new, headroom)
+        CH = chunk
+        if -(-max_new // CH) * CH > headroom:
+            CH = max_new          # near a full context: one exact-size chunk
+        # the slots past total_e that writes may touch: the decode chunks and
+        # the last extension chunk's padding
+        need = total_e + max(-(-max_new // CH) * CH, EXT_PAD)
+        if state.cache is not None and need > state.cache.k.shape[2]:
+            state.reset()         # the conversation outgrew the cache
+        c = 0
+        for a, b in zip(ids, state.ids):
+            if a != b:
+                break
+            c += 1
+        c = min(c, len(ids) - 1)  # always prefill at least one new token
+        if state.cache is None:
+            c = 0
+        L = expand(c)
+        vid = state.video_tokens if (sent is not None and sent >= c) \
+            else torch.zeros((0, D), dtype=dtype, device=self.device)
+        sfx = self.splice_embeddings(ids[c:], vid).to(dtype)
+        S_sfx = int(sfx.shape[1])
+        if state.cache is None:
+            cap = min(self.cfg.max_context, need + state.headroom)
+            cache = self._cache(cap, dtype)
+            Sb = min(cap, -(-S_sfx // 256) * 256)
+            emb = torch.nn.functional.pad(sfx, (0, 0, 0, Sb - S_sfx))
+            valid = (torch.arange(Sb, device=self.device) < S_sfx)[None]
+            first_tok, cache, _ = qwen2.decode_prefill(self.lm, emb, valid, cache,
+                                                       step_logits=step_logits)
+        else:
+            # check the cache out of the state before any call that can fail
+            cache, state.cache = state.cache, None
+            state.ids, state.covered = [], 0
+            cache.length = L
+            first_tok, off, last = None, 0, []
+            while off < S_sfx:
+                n = min(256, S_sfx - off)
+                nb = 64 if n <= 64 else 256
+                blk = torch.nn.functional.pad(sfx[:, off:off + n], (0, 0, 0, nb - n))
+                first_tok, cache = qwen2.prefill_extend(self.lm, blk, n, cache,
+                                                        step_logits=last)
+                off += n
+                cache.length = L + off    # the next block overwrites the pads
+            if step_logits is not None:
+                step_logits.append(last[-1])
+        cache.length = total_e    # decode goes on in place from here
+        return ids, total_e, first_tok, cache, CH, max_new
 
     def generate_batch(self, frames_list, question: str,
                        max_new_tokens: int | None = None) -> list:
@@ -544,3 +801,30 @@ class LLaVAVideoModel:
                 else:
                     p.normal_(0.0, 0.02, generator=generator)
         return cls(net=net, cfg=cfg, **kw)
+
+
+class ConversationState:
+    """Prefix-K/V reuse across the rounds of :meth:`generate_multi_round`.
+
+    Round i+1's rendered prompt extends round i's prompt and answer, so
+    nearly every token of it already has K/V in the cache; only the new turn
+    needs a forward pass, and the video encodes once a conversation.
+
+    Invariants: cache slots [0, covered) are hole-free real tokens whose
+    token ids (the <image> sentinel standing for n_video slots) are ``ids``.
+    Reuse is the longest common token prefix, so an edited history reuses
+    less, never answers wrongly.  One state belongs to one video and one
+    conversation (the eval harness makes one a doc).
+    """
+
+    def __init__(self, headroom: int = 2048):
+        self.ids: list[int] = []
+        self.covered = 0               # embedding-level tokens in the cache
+        self.cache: KVCache | None = None
+        self.video_tokens = None       # encoded once a conversation
+        self.headroom = int(headroom)
+
+    def reset(self):
+        """Drop the cache (it outgrew its capacity): the next round
+        re-prefills in full into a larger one.  The video tokens stay."""
+        self.ids, self.covered, self.cache = [], 0, None
